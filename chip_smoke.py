@@ -6,14 +6,20 @@ Run from the root of a checkout, on a machine with one CUDA card::
 
 It builds the CUDA tile kernels from ``src/repro_torch/kernels/csrc`` into
 ``build/repro_torch_kernels/`` (one ``nvcc`` per kernel, all at once), then
-runs six phases, each printing JSON lines:
+runs seven phases, each printing JSON lines:
 
   1. device    the card's name and power limit (``nvidia-smi``), versions;
   2. build     kernels built and seconds;
   3. small     every stock kernel at s in {1, 2, 4} (all four boundary
                kinds) and a bfloat16 spec: ``stencil_cuda`` against its
                plain version on the card, and ``stencil_cuda_batched``
-               bitwise against ``stencil_cuda`` per entry;
+               bitwise against ``stencil_cuda`` per entry.  Then the
+               streamed bucket specs of JACOBI2D and SOBEL2D-REPLICATE
+               under replicate (halo-index maps) and periodic (wrap maps),
+               three entries with different maps, one of them the all-zero
+               batch filler: the same checks per round, and the round loop
+               (wrap maps consumed between rounds) against its plain
+               version;
   4. main      the port's main path at the paper's sizes:
                ``autotune(DSL, device="cuda")`` then ``design.runner``, with
                the launch counters read around the run, the error against
@@ -23,7 +29,17 @@ runs six phases, each printing JSON lines:
   5. batched   ``build_batched_runner`` with ``buffer_depth=2`` (K2) on a
                batch of 8, bitwise against K1 per entry;
   6. yardstick JACOBI2D at s=1 against one ``F.conv2d`` call (cuDNN with
-               TF32 off), timed only as a yardstick.
+               TF32 off), timed only as a yardstick;
+  7. serve     bucketed serving at the paper's width: ``StencilServer``
+               with a (10240,) x (1024, 1088) bucket ladder serves
+               JACOBI2D under zero, constant 25.0, replicate and periodic
+               boundaries, 16 iterations, 5 shapes per mode (9720x1024
+               and 4 drawn from seed 2022 in [8000, 9720] x [768, 1024]),
+               2 requests per shape.  Every result is held bitwise against
+               the port's single-shot ``build_bucket_runner`` and within
+               tolerance of the plain version of the unpadded spec; one
+               line per mode gives launches, flush seconds, grids per
+               second and the padded-cell share.
 
 Then one JSON line lists every kernel with its launches, error and times,
 and the last line is ``{"ok": true, "device": {...}}``.  Any failure
@@ -33,6 +49,7 @@ Imports nothing of JAX and nothing of the JAX package ``repro``.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -49,6 +66,20 @@ MAIN_CASES = [  # (stock kernel, shape); 16 iterations each
     ("heat3d_periodic", (9720, 32, 32)),
 ]
 ITERATIONS = 16
+# benchmarks/serving_throughput.py::BOUNDARY_DSL (copied: the port imports
+# nothing of the JAX package's tree)
+BOUNDARY_DSL = """
+kernel: JACOBI2D_{tag}
+iteration: {it}
+boundary: {boundary}
+input float: in_1({r}, {c})
+output float: out_1(0,0) = (in_1(0,1) + in_1(1,0) + in_1(0,0)
+    + in_1(0,-1) + in_1(-1,0)) / 5
+"""
+SERVE_MODES = ["zero", "constant 25.0", "replicate", "periodic"]
+SERVE_LADDER = ((10240,), (1024, 1088))
+SERVE_SHAPES, SERVE_REPEATS = 5, 2
+STREAMED_BUCKET_PAD = 24   # small streamed specs: bucket = grid + this
 BF16_DSL = """
 kernel: J2D_BF16
 iteration: 2
@@ -89,7 +120,15 @@ def main() -> int:
     from repro_torch.core.platform import gpu_platform_for
     from repro_torch.core.spec import Boundary
     from repro_torch.kernels import cuda_build, ops, pipeline, stencil
+    from repro_torch.runtime import (
+        DesignCache,
+        ShapeBucketer,
+        bucket_plan,
+        build_bucket_runner,
+        padded_request_shape,
+    )
     from repro_torch.runtime.batching import build_batched_runner
+    from repro_torch.serve import StencilRequest, StencilServer
 
     dev = torch.device("cuda")
     torch.backends.cudnn.allow_tf32 = False
@@ -103,9 +142,9 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-    name = torch.cuda.get_device_name(0)
-    gpu = gpu_platform_for(name)
-    emit(phase="device", nvidia_smi=smi, kind=name, sku_row=gpu.name,
+    card = torch.cuda.get_device_name(0)
+    gpu = gpu_platform_for(card)
+    emit(phase="device", nvidia_smi=smi, kind=card, sku_row=gpu.name,
          torch=torch.__version__, cuda=torch.version.cuda,
          python=sys.version.split()[0])
 
@@ -157,8 +196,20 @@ def main() -> int:
         small.append(lower(stencils.get(key, shape=shape, iterations=4)).spec)
     small.append(dataclasses.replace(small[0], boundary=Boundary("constant", 1.5)))
     small.append(lower(dsl.parse(BF16_DSL)).spec)
+    # streamed bucket specs: (request spec, its bucket plan)
+    streamed = []
+    for key in ("jacobi2d", "sobel2d_replicate"):
+        for kind, wrap in (("replicate", None), ("periodic", 2)):
+            spec = dataclasses.replace(
+                lower(stencils.get(key, shape=SMALL_2D, iterations=4)).spec,
+                boundary=Boundary(kind),
+            )
+            bucket = tuple(n + STREAMED_BUCKET_PAD for n in SMALL_2D)
+            streamed.append((spec, bucket_plan(spec, bucket, iterations=4,
+                                               wrap_rounds=wrap)))
     t0 = time.perf_counter()
-    libs = cuda_build.build_many(small, ptxas_info=True)
+    libs = cuda_build.build_many(small + [p.mspec for _, p in streamed],
+                                 ptxas_info=True)
     ptxas = [ln.strip() for ln in libs[0].build_log.splitlines() if "registers" in ln]
     emit(phase="build", kernels=len({lib.key for lib in libs}),
          seconds=round(time.perf_counter() - t0, 3), ptxas_jacobi2d=ptxas)
@@ -193,6 +244,50 @@ def main() -> int:
              max_rel_err=max(errs), tol=TOL[spec.dtype], k2_bitwise=bitwise)
     check(kinds == {"zero", "constant", "replicate", "periodic"},
           f"boundary kinds covered: {sorted(kinds)}")
+
+    # streamed bucket specs: three entries with their own maps (a full
+    # grid, a smaller one, the all-zero batch filler)
+    streamed_err = 0.0
+    for spec, plan in streamed:
+        mspec = plan.mspec
+        entries = []
+        for cut in (0, 5):
+            shape = tuple(n - cut for n in spec.shape)
+            e = {n: plan.place_entry(rng.standard_normal(shape).astype(np.float32))
+                 for n in spec.inputs}
+            e.update(plan.service_entry(shape))
+            entries.append(e)
+        filler = {n: plan.filler_entry(n) for n in spec.inputs}
+        filler.update(plan.service_filler())
+        entries.append(filler)
+        check(all(not np.any(filler[n]) for n in plan.service_names),
+              "the filler entry carries all-zero service arrays")
+        t = ops.to_device(mspec, {n: np.stack([e[n] for e in entries])
+                                  for n in mspec.inputs}, dev)
+        errs, bitwise = [], True
+        for s in (1, 2, 4):
+            both = pipeline.stencil_cuda_batched(mspec, t, s)
+            for b in range(3):
+                one = {n: a[b] for n, a in t.items()}
+                got = stencil.stencil_cuda(mspec, one, s)
+                want = stencil.stencil_torch_tiled(mspec, one, s)
+                torch.cuda.synchronize()
+                scale = max(1.0, float(want.abs().max()))
+                errs.append(max_err(got, want) / scale)
+                bitwise &= torch.equal(both[b], got)
+        rounds = pipeline.stencil_run_batched(mspec, t, 4, s=1)
+        rounds_plain = ops.run_rounds(mspec, t, 4, 1,
+                                      pipeline.stencil_torch_pipeline)
+        scale = max(1.0, float(rounds_plain.abs().max()))
+        errs.append(max_err(rounds, rounds_plain) / scale)
+        check(max(errs) <= TOL[mspec.dtype],
+              f"{mspec.name}: streamed kernel vs plain {max(errs)}")
+        check(bitwise, f"{mspec.name}: K2 differs from K1 per entry")
+        streamed_err = max(streamed_err, max(errs))
+        emit(phase="small", spec=mspec.name, boundary=spec.boundary.kind,
+             streamed=list(plan.service_names), bucket=list(plan.bucket),
+             dtype=mspec.dtype, s=[1, 2, 4], rounds_iterations=4,
+             max_rel_err=max(errs), tol=TOL[mspec.dtype], k2_bitwise=bitwise)
 
     # ---- 4. main path -----------------------------------------------------
     k1_main_launches = 0
@@ -314,23 +409,126 @@ def main() -> int:
          plain_ms=k1_plain_ms, library_ms=library_ms, bound_ms=k1_bound,
          bound_by=k1_by, conv_vs_kernel_err=conv_err)
 
+
+    # ---- 7. serve: bucketed serving at the paper's width -------------------
+    def serve_spec(mode, shape):
+        return dsl.parse(BOUNDARY_DSL.format(
+            tag=mode.split()[0].upper(), it=ITERATIONS, boundary=mode,
+            r=shape[0], c=shape[1]))
+
+    srv = StencilServer(device="cuda", max_batch=4, cache=DesignCache(),
+                        bucketing=ShapeBucketer(ladder=SERVE_LADDER),
+                        async_dispatch=True, warmup=False)
+    srng = np.random.default_rng(2022)
+    paper = (9720, 1024)
+    traffic = {}
+    for mode in SERVE_MODES:
+        shapes = [paper] + [
+            (int(srng.integers(8000, 9721)), int(srng.integers(768, 1025)))
+            for _ in range(SERVE_SHAPES - 1)
+        ]
+        reg = srv.register(mode.split()[0], serve_spec(mode, paper))
+        traffic[mode] = [
+            (shape, {"in_1": srng.standard_normal(shape).astype(np.float32)})
+            for shape in shapes for _ in range(SERVE_REPEATS)
+        ]
+        for shape in shapes:      # route every shape: bucket designs exist
+            reg.cached.runner_for(shape, count=0)
+    bucket_specs = [e.cached.design.spec for m in SERVE_MODES
+                    for e in srv.design(m.split()[0]).cached.buckets.values()]
+    t0 = time.perf_counter()
+    cuda_build.build_many(bucket_specs)
+    emit(phase="serve_build", kernels=len({cuda_build.kernel_key(sp)
+                                          for sp in bucket_specs}),
+         seconds=time.perf_counter() - t0)
+    serve_launches = {"stencil_cuda": 0, "stencil_cuda_batched": 0}
+    serve_err = 0.0
+    for mode in SERVE_MODES:
+        name = mode.split()[0]
+        reqs = [StencilRequest(name, arrays) for _, arrays in traffic[mode]]
+        before = srv.stats()[name]["batches"]
+        torch.cuda.synchronize()
+        stencil.stencil_cuda.launches = 0
+        pipeline.stencil_cuda_batched.launches = 0
+        t0 = time.perf_counter()
+        outs = srv.serve(reqs)
+        flush_s = time.perf_counter() - t0
+        launches = {"stencil_cuda": stencil.stencil_cuda.launches,
+                    "stencil_cuda_batched": pipeline.stencil_cuda_batched.launches}
+        check(sum(launches.values()) > 0, f"serve {mode}: no kernel launched")
+        for k, v in launches.items():
+            serve_launches[k] += v
+        bd = srv.design(name).cached
+        batches = srv.stats()[name]["batches"] - before
+        per_bucket = {}
+        for shape, _ in traffic[mode]:
+            b = bd.bucket_for(shape)
+            per_bucket[b] = per_bucket.get(b, 0) + 1
+        dispatched = sum(-(-n // srv.max_batch) * srv.max_batch * math.prod(b)
+                         for b, n in per_bucket.items())
+        real = sum(math.prod(shape) for shape, _ in traffic[mode])
+        err, bitwise = 0.0, True
+        for (shape, arrays), out in zip(traffic[mode], outs):
+            sp = serve_spec(mode, shape)
+            check(out.shape == shape and bool(np.isfinite(out).all()),
+                  f"serve {mode} {shape}: shape {out.shape} or non-finite")
+            entry = bd.runner_for(shape, count=0)
+            minimal = padded_request_shape(sp, shape, ITERATIONS, bd.wrap_rounds)
+            single = build_bucket_runner(
+                sp, minimal, entry.config, iterations=ITERATIONS,
+                device="cuda", wrap_rounds=bd.wrap_rounds,
+            )({n: a[None] for n, a in arrays.items()})[0]
+            bitwise &= bool(np.array_equal(out, single))
+            low = lower(sp).spec
+            t = ops.to_device(low, arrays, dev)
+            plain = plain_run(low, t, ITERATIONS, entry.config.s, entry.runner.tile)
+            scale = max(1.0, float(plain.abs().max()))
+            err = max(err, float(np.abs(out - plain.cpu().numpy()).max()) / scale)
+        # device time of one full micro-batch of the most used bucket
+        # (CUDA events around the dispatch of staged inputs)
+        top = max(per_bucket, key=per_bucket.get)
+        chunk = [(i, r, shape) for i, (r, (shape, _)) in
+                 enumerate(zip(reqs, traffic[mode])) if bd.bucket_for(shape) == top]
+        runner, stacked, _, _ = srv._prepare(srv.design(name), top,
+                                             chunk[:srv.max_batch])
+        staged = runner.stage(stacked)
+        batch_ms = timed(lambda: runner.dispatch(staged), reps=3, warm=1)
+        check(bitwise, f"serve {mode}: differs from single-shot bucket runner")
+        check(err <= TOL["float32"], f"serve {mode}: vs plain {err}")
+        serve_err = max(serve_err, err)
+        emit(phase="serve", mode=mode, iterations=ITERATIONS,
+             requests=len(reqs), shapes=sorted({s for s, _ in traffic[mode]}),
+             micro_batches=batches, buckets_built=bd.num_buckets,
+             buckets=["x".join(map(str, b)) for b in per_bucket],
+             config=dict(s=entry.config.s, buffer_depth=entry.config.buffer_depth),
+             wrap_rounds=bd.wrap_rounds, path=entry.runner.path,
+             launches=launches, flush_s=flush_s, grids_per_s=len(reqs) / flush_s,
+             micro_batch_device_ms=batch_ms,
+             device_busy_share=batches * batch_ms / 1e3 / flush_s,
+             padded_cell_share=1.0 - real / dispatched,
+             bitwise_vs_single_shot=bitwise, max_rel_err=err, tol=TOL["float32"])
+
     kernels = [
         dict(name="stencil_cuda", route="cuda",
              source="src/repro_torch/kernels/csrc/stencil_tile.cuh",
              replaces="src/repro/kernels/stencil.py:96",
              launches=k1_main_launches, max_abs_err=k1_err, ms=k1_ms,
              plain_ms=k1_plain_ms, bound_ms=k1_bound, bound_by=k1_by,
-             library_ms=library_ms),
+             library_ms=library_ms,
+             serve_launches=serve_launches["stencil_cuda"],
+             streamed_max_rel_err=streamed_err),
         dict(name="stencil_cuda_batched", route="cuda",
              source="src/repro_torch/kernels/csrc/stencil_tile.cuh",
              replaces="src/repro/kernels/pipeline.py:85",
              launches=k2_main_launches, max_abs_err=k2_err, ms=k2_ms,
              plain_ms=k2_plain_ms, bound_ms=k2_bound, bound_by=k2_by,
-             library_ms=None),
+             library_ms=None,
+             serve_launches=serve_launches["stencil_cuda_batched"],
+             streamed_max_rel_err=streamed_err),
     ]
     check(all(k["launches"] > 0 for k in kernels), "a kernel never launched")
     emit(kernels=kernels)
-    emit(ok=True, device={"platform": "gpu", "kind": name,
+    emit(ok=True, device={"platform": "gpu", "kind": card,
                           "count": torch.cuda.device_count()})
     return 0
 

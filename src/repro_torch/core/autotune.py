@@ -4,18 +4,18 @@
       ──analytical model (H100)──► ranked configs
       ──runner build──► batched runner over the CUDA tile kernels
 
-PyTorch port of the single-device path of ``repro.core.autotune``.  Two
-departures from the reference:
+PyTorch port of the single-device path of ``repro.core.autotune``.  For
+``k=1`` the reference builds through ``distribute.build_runner``, a
+shard_map pipeline that never reaches its Pallas kernel.  Here the runner
+comes from :func:`repro_torch.runtime.batching.build_batched_runner` for
+the chosen config, so the main path runs K1 (``buffer_depth=0``) or K2
+(``buffer_depth=2``).
 
-  * For ``k=1`` the reference builds through ``distribute.build_runner``,
-    a shard_map pipeline that never reaches its Pallas kernel.  Here the
-    runner comes from :func:`repro_torch.runtime.batching.
-    build_batched_runner` for the chosen config, so the main path runs K1
-    (``buffer_depth=0``) or K2 (``buffer_depth=2``).
-  * The static feasibility preflight and the certified bound diagnostic
-    are not ported yet.  Every single-device candidate is feasible (the
-    ranker bounds ``s`` by the kernel's shared memory), so
-    ``TunedDesign.diagnostics`` stays empty.
+As in the reference, the ranking is preflighted
+(:func:`repro_torch.core.analysis.preflight`, over the runner's one
+device): the first feasible candidate is built and every skipped one is
+kept as a diagnostic, after the certified rounding-error bound (SASA500,
+:func:`repro_torch.core.numerics.bound_diagnostic`).
 """
 from __future__ import annotations
 
@@ -23,13 +23,13 @@ import dataclasses
 
 import torch
 
-from repro_torch.core import dsl, model
+from repro_torch.core import analysis, dsl, model, numerics
+from repro_torch.core.analysis import Diagnostic
 from repro_torch.core.ir import PassReport, lower
 from repro_torch.core.model import ParallelismConfig, Prediction
 from repro_torch.core.platform import DEFAULT_GPU, GPUPlatform, gpu_platform_for
 from repro_torch.core.spec import StencilSpec
 from repro_torch.kernels.ops import resolve_device
-from repro_torch.runtime.batching import build_batched_runner
 
 
 @dataclasses.dataclass
@@ -39,7 +39,8 @@ class TunedDesign:
     ranking: list[Prediction]
     runner: object  # callable(arrays) -> np.ndarray
     lowering: tuple[PassReport, ...] = ()
-    diagnostics: tuple = ()
+    # the certified bound (SASA500), then infeasible-candidate skips
+    diagnostics: tuple[Diagnostic, ...] = ()
 
     @property
     def config(self) -> ParallelismConfig:
@@ -83,12 +84,29 @@ def _tune(source_or_spec, platform, iterations, device, build,
     ]
     if not ranking:
         raise RuntimeError(f"no candidate configuration for {spec.name!r}")
+    # one device, and every port runner is a batched single-device runner
+    verdicts = analysis.preflight(
+        spec, [p.config for p in ranking], 1, iterations=iterations,
+        batched=True,
+    )
+    diags = [numerics.bound_diagnostic(spec, iterations=iterations)]
+    diags += [v.diagnostic("info") for v in verdicts if not v.feasible]
+    feasible = [p for p, v in zip(ranking, verdicts) if v.feasible]
+    if not feasible:
+        raise RuntimeError(
+            f"no feasible configuration for {spec.name!r}:\n"
+            + "\n".join(d.format() for d in diags[1:])
+        )
     runner = None
     if build:
+        # imported here: the runtime package imports this module
+        from repro_torch.runtime.batching import build_batched_runner
+
         runner = _single_grid_runner(build_batched_runner(
-            spec, ranking[0].config, iterations=iterations, device=dev,
+            spec, feasible[0].config, iterations=iterations, device=dev,
         ))
-    return TunedDesign(spec, ranking[0], ranking, runner, lowered.reports)
+    return TunedDesign(spec, feasible[0], ranking, runner, lowered.reports,
+                       tuple(diags))
 
 
 def autotune(

@@ -292,22 +292,31 @@ def predict_gpu(
 ) -> Prediction:
     """Latency of one single-device configuration on the CUDA tile kernel.
 
-      * HBM term: per round every input window is read (tile + 2sr per
-        axis) and every grid cell written once;
+      * HBM term: per round every floating input window is read (tile +
+        2sr per axis), and every halo-index map window (int32) once for
+        the belt bounds, and every grid cell written once.  Streamed wrap
+        maps are read between rounds by a per-axis gather over the grid
+        (map and iterate read, iterate written);
       * compute term: every stage of every fused iteration runs over the
         whole window, ``ops_per_cell`` float32 operations per cell;
       * one kernel launch per round.
     """
+    from repro_torch.kernels.cuda_build import float_inputs
+
     it = spec.iterations if iterations is None else iterations
     s = max(min(cfg.s, it), 1)
+    if spec.wrap_index_inputs:
+        s = min(s, max(spec.wrap_round_depth, 1))
     rounds = math.ceil(it / s)
     tile = default_tile(spec.ndim, cfg.tile_rows)
     g = plan_blocks(spec, s, tile)
     window_cells = g["tiles"] * g["window_cells"]
     bytes_per_round = (
-        spec.num_inputs * window_cells + spec.cells
-    ) * spec.itemsize
-    hbm_bytes = float(bytes_per_round * rounds)
+        (len(float_inputs(spec)) * window_cells + spec.cells) * spec.itemsize
+        + len(spec.halo_index_inputs) * window_cells * 4
+    )
+    rewrap = len(spec.wrap_index_inputs) * spec.cells * (4 + 2 * spec.itemsize)
+    hbm_bytes = float(bytes_per_round * rounds + rewrap * (rounds - 1))
     flops = float(window_cells * spec.ops_per_cell * it)
     memory_term = hbm_bytes / gpu.hbm_bw
     compute_term = flops / gpu.fp32_flops

@@ -224,6 +224,37 @@ ZERO_BOUNDARY = Boundary("zero")
 
 
 # --------------------------------------------------------------------------
+# Dtype float limits (consumed by the certified-numerics analyzer)
+# --------------------------------------------------------------------------
+
+
+def _float_info(dtype: str):
+    """``finfo`` for a DSL dtype name (bfloat16 through torch, which numpy
+    lacks; the same eps and max as the reference's ``ml_dtypes``)."""
+    if str(dtype) == "bfloat16":
+        import torch
+
+        return torch.finfo(torch.bfloat16)
+    return np.finfo(np.dtype(dtype))
+
+
+def unit_roundoff(dtype: str) -> float:
+    """Per-op relative error budget the numerics analyzer charges ``dtype``.
+
+    This is ``eps`` (the gap from 1.0 to the next float), i.e. **twice**
+    the true unit roundoff of a correctly-rounded op (``eps/2``): the
+    2x headroom absorbs backends whose ops are faithful rather than
+    correctly rounded.
+    """
+    return float(_float_info(dtype).eps)
+
+
+def finite_max(dtype: str) -> float:
+    """Largest finite value of ``dtype`` (the SASA501 overflow line)."""
+    return float(_float_info(dtype).max)
+
+
+# --------------------------------------------------------------------------
 # Stages and the full spec
 # --------------------------------------------------------------------------
 

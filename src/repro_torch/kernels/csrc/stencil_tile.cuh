@@ -7,8 +7,11 @@
 //
 // kernels/cuda_build.py generates two files per lowered spec.  The
 // translation unit defines, before including this file:
-//   SASA_N_IN        number of spec inputs
+//   SASA_N_IN        number of floating spec inputs (the windows staged in
+//                    shared memory)
 //   SASA_ITER        index of the iterate input among them
+//   SASA_N_HALO      number of streamed int32 halo-index maps (0, or one
+//                    per real axis: a bucketed replicate spec)
 //   SASA_N_LOCAL     number of `local` stages
 //   SASA_BOUNDARY    0 zero, 1 constant, 2 replicate, 3 periodic
 //   SASA_BVALUE      the constant boundary value (float literal)
@@ -17,7 +20,8 @@
 //   sasa_stage<k>    one __device__ specialisation per stage (locals, then
 //                    output), reading taps through sasa_tap
 //   SASA_STAGE_CALLS the statements running every stage of one iteration,
-//                    sasa_run_stage<k>(destination, env, org, g) for each k
+//                    sasa_run_stage<k>(destination, env, org, g, lo, hi)
+//                    for each k
 //
 // Geometry.  Every axis is tiled (the TPU block kept whole columns
 // resident; a 4096-column f32 row is 16 KB and the window needs several
@@ -37,6 +41,25 @@
 // iterations of a round in shared memory, so HBM traffic per iteration
 // falls by ~s at the cost of recomputing the halo trapezoid.
 //
+// Streamed halo-index maps (bucketed replicate serving).  Each map holds,
+// per cell, the grid coordinate along its axis that the cell copies from:
+// identity on the request's real region, a clamp onto its last real cell
+// on the bucket's padding belt (an all-zero map for a batch filler).  The
+// maps are never staged: on entry every thread folds the map values of
+// its window cells into a per-(entry, tile) minimum and maximum of the
+// block-local target clamp(map - origin, 0, win - 1) (shared-memory
+// atomicMin/atomicMax over the whole window, as the plain version reduces
+// over all window axes).  Then, on every floating input window after the
+// load and on every stage output after the stage, one pass per axis in
+// axis order, with a barrier between axes, copies the cell at `lo` into
+// the cells below it and the cell at `hi` into the cells above it
+// (blockops.streamed_halo_fixup), before the replicate rule.  Clamp maps
+// are fixed points of both fixups, so `lo`/`hi` hold for every stage of
+// every fused iteration.  Per-entry maps ride the same blockIdx.z * cells
+// batch stride as the data, so K2 stays bitwise equal to K1 per entry.
+// Wrap-index maps (bucketed periodic serving) are consumed between rounds
+// by the host-side round loop and never reach this kernel.
+//
 // Numerics: every value lives in shared memory as float; each stage
 // computes in float with one rounding per operation (built with
 // -fmad=false and IEEE division) and rounds to the storage type where the
@@ -45,6 +68,7 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+#include <limits.h>
 
 #if SASA_STORE_BF16
 typedef __nv_bfloat16 sasa_store_t;
@@ -68,6 +92,7 @@ struct SasaGeom {
 
 struct SasaPtrs {
   const sasa_store_t* in[SASA_N_IN];
+  const int32_t* map[SASA_N_HALO > 0 ? SASA_N_HALO : 1];
   sasa_store_t* out;
 };
 
@@ -162,14 +187,55 @@ __device__ __forceinline__ void sasa_replicate_fixup(float* dst,
   });
 }
 
-// One stage over the whole window into dst, then its boundary rule.
+// One axis pass of the streamed belt over `nb` windows starting at `dst`
+// (`stride` floats apart): window cells below lo[ax] copy the cell at
+// lo[ax] on that axis, cells above hi[ax] the cell at hi[ax].  The cells
+// read are never written in the same pass.  Ends with a barrier.
+template <int AX>
+__device__ __forceinline__ void sasa_streamed_axis(float* dst, int nb,
+                                                   int stride, const int* lo,
+                                                   const int* hi,
+                                                   const int* org,
+                                                   const SasaGeom& g) {
+  const int l = lo[AX], h = hi[AX];
+  sasa_for_window(g, org, [&](int z, int y, int x, int c, int, int, int) {
+    const int w = AX == 0 ? z : (AX == 1 ? y : x);
+    if (w >= l && w <= h) return;
+    const int t = w < l ? l : h;
+    const int src = AX == 0 ? (t * g.win[1] + y) * g.win[2] + x
+                  : AX == 1 ? (z * g.win[1] + t) * g.win[2] + x
+                            : (z * g.win[1] + y) * g.win[2] + t;
+    for (int i = 0; i < nb; ++i) dst[i * stride + c] = dst[i * stride + src];
+  });
+  __syncthreads();
+}
+
+// The streamed belt on every real axis, in axis order (a no-op without
+// halo-index maps).  Each axis pass ends with a barrier.
+__device__ __forceinline__ void sasa_streamed_fixup(float* dst, int nb,
+                                                    int stride,
+                                                    const int* lo,
+                                                    const int* hi,
+                                                    const int* org,
+                                                    const SasaGeom& g) {
+#if SASA_N_HALO > 0
+  if (SASA_N_HALO >= 3) sasa_streamed_axis<0>(dst, nb, stride, lo, hi, org, g);
+  if (SASA_N_HALO >= 2) sasa_streamed_axis<1>(dst, nb, stride, lo, hi, org, g);
+  sasa_streamed_axis<2>(dst, nb, stride, lo, hi, org, g);
+#endif
+}
+
+// One stage over the whole window into dst, then its boundary rule:
+// the streamed belt first (bucket specs), then the bucket-level rule.
 // zero/constant write the boundary value on out-of-grid cells directly
 // (the reference computes them and then masks: the same result).
 template <int K>
 __device__ __forceinline__ void sasa_run_stage(float* dst,
                                                const float* const* env,
                                                const int* org,
-                                               const SasaGeom& g) {
+                                               const SasaGeom& g,
+                                               const int* lo,
+                                               const int* hi) {
   sasa_for_window(g, org, [&](int z, int y, int x, int c, int gz, int gy,
                               int gx) {
     float v;
@@ -181,6 +247,7 @@ __device__ __forceinline__ void sasa_run_stage(float* dst,
     dst[c] = v;
   });
   __syncthreads();
+  sasa_streamed_fixup(dst, 1, 0, lo, hi, org, g);
   if (SASA_BOUNDARY == 2) {
     sasa_replicate_fixup(dst, org, g);
     __syncthreads();
@@ -194,6 +261,18 @@ sasa_tile_kernel(SasaPtrs p, SasaGeom g) {
   float* buf[SASA_NBUF];
 #pragma unroll
   for (int i = 0; i < SASA_NBUF; ++i) buf[i] = sasa_smem + i * wcells;
+  // Per-(entry, tile) belt bounds per kernel axis, after the windows.
+  int* lo = reinterpret_cast<int*>(sasa_smem + SASA_NBUF * wcells);
+  int* hi = lo + 3;
+#if SASA_N_HALO > 0
+  if (threadIdx.x == 0 && threadIdx.y == 0) {
+    for (int d = 0; d < 3; ++d) {
+      lo[d] = INT_MAX;
+      hi[d] = INT_MIN;
+    }
+  }
+  __syncthreads();
+#endif
 
   int t = blockIdx.x;
   int tc[3];
@@ -218,7 +297,47 @@ sasa_tile_kernel(SasaPtrs p, SasaGeom g) {
       buf[i][c] = v;
     }
   });
+#if SASA_N_HALO > 0
+  // Belt bounds: min and max over the whole window of each map's
+  // block-local target (the maps as loaded, with the same fold).
+  {
+    int tlo[SASA_N_HALO], thi[SASA_N_HALO];
+    for (int k = 0; k < SASA_N_HALO; ++k) {
+      tlo[k] = INT_MAX;
+      thi[k] = INT_MIN;
+    }
+    sasa_for_window(g, org, [&](int, int, int, int, int gz, int gy,
+                                int gx) {
+      const long long src =
+          ((long long)sasa_fold(gz, g.n[0]) * g.n[1] + sasa_fold(gy, g.n[1])) *
+              g.n[2] + sasa_fold(gx, g.n[2]);
+      for (int k = 0; k < SASA_N_HALO; ++k) {
+        const int ax = 3 - SASA_N_HALO + k;
+        const int t =
+            sasa_clamp(p.map[k][base + src] - org[ax], 0, g.win[ax] - 1);
+        tlo[k] = t < tlo[k] ? t : tlo[k];
+        thi[k] = t > thi[k] ? t : thi[k];
+      }
+    });
+    for (int k = 0; k < SASA_N_HALO; ++k) {
+      const int ax = 3 - SASA_N_HALO + k;
+      if (tlo[k] != INT_MAX) {
+        atomicMin(&lo[ax], tlo[k]);
+        atomicMax(&hi[ax], thi[k]);
+      }
+    }
+  }
+#endif
   __syncthreads();
+  // Streamed belt on every input window, then (replicate) the bucket rule,
+  // as the plain version re-imposes both on entry.
+#if SASA_N_HALO > 0
+  sasa_streamed_fixup(buf[0], SASA_N_IN, wcells, lo, hi, org, g);
+  if (SASA_BOUNDARY == 2) {
+    for (int i = 0; i < SASA_N_IN; ++i) sasa_replicate_fixup(buf[i], org, g);
+    __syncthreads();
+  }
+#endif
 
   float* cur = buf[SASA_ITER];
   float* nxt = buf[SASA_NBUF - 1];
@@ -251,16 +370,22 @@ sasa_tile_kernel(SasaPtrs p, SasaGeom g) {
 }
 
 // Plain C entry point, bound with ctypes.
-//   ins   host array of SASA_N_IN device pointers
+//   ins   host array of SASA_N_IN device pointers (floating inputs)
+//   maps  host array of SASA_N_HALO device pointers (int32 halo-index
+//         maps, (B,) + grid each, in axis order); ignored when 0
 //   out   device pointer of the output, (B,) + grid
 //   geom  host array of 12 ints: B, n0, n1, n2, t0, t1, t2, h0, h1, h2, s,
 //         dynamic shared-memory bytes
 // Returns cudaGetLastError() after the launch (0 on success).
-extern "C" int sasa_launch(const unsigned long long* ins, void* out,
+extern "C" int sasa_launch(const unsigned long long* ins,
+                           const unsigned long long* maps, void* out,
                            const int* geom, void* stream) {
   SasaPtrs p;
   for (int i = 0; i < SASA_N_IN; ++i)
     p.in[i] = reinterpret_cast<const sasa_store_t*>(ins[i]);
+  p.map[0] = nullptr;
+  for (int k = 0; k < SASA_N_HALO; ++k)
+    p.map[k] = reinterpret_cast<const int32_t*>(maps[k]);
   p.out = reinterpret_cast<sasa_store_t*>(out);
   SasaGeom g;
   const int B = geom[0];

@@ -62,21 +62,40 @@ BOUNDARY_CODES = {"zero": 0, "constant": 1, "replicate": 2, "periodic": 3}
 SUPPORTED_DTYPES = ("float32", "bfloat16")
 
 
+def index_inputs(spec: StencilSpec) -> tuple[str, ...]:
+    """The streamed int32 index maps of a bucket spec (halo, then wrap)."""
+    return tuple(spec.halo_index_inputs) + tuple(spec.wrap_index_inputs)
+
+
+def float_inputs(spec: StencilSpec) -> list[str]:
+    """The inputs the kernel stages in shared memory, in spec order."""
+    skip = set(index_inputs(spec))
+    return [n for n in spec.inputs if n not in skip]
+
+
 def check_supported(spec: StencilSpec) -> None:
     """Raise for what the CUDA tile kernel does not take."""
-    if spec.halo_index_inputs or spec.wrap_index_inputs:
-        raise NotImplementedError(
-            f"spec {spec.name!r} carries streamed halo/wrap index inputs; "
-            "the CUDA tile kernel does not support them yet"
-        )
     if not 1 <= spec.ndim <= 3:
         raise NotImplementedError(f"{spec.ndim}-D specs are not supported")
-    dtypes = {dt for dt, _ in spec.inputs.values()}
+    for n in index_inputs(spec):
+        if spec.inputs[n][0] != "int32":
+            raise NotImplementedError(
+                f"index input {n!r} of {spec.name!r} is "
+                f"{spec.inputs[n][0]}, not int32"
+            )
+    if spec.halo_index_inputs and spec.boundary.kind != "replicate":
+        # the producer (runtime.bucketing.masked_spec) threads halo maps
+        # into replicate specs only; under another rule the plain version
+        # would read maps the boundary rule has rewritten
+        raise NotImplementedError(
+            f"halo-index maps under a {spec.boundary.kind} boundary"
+        )
+    dtypes = {spec.inputs[n][0] for n in float_inputs(spec)}
     dtypes |= {st.dtype for st in spec.stages}
     if len(dtypes) != 1 or spec.dtype not in SUPPORTED_DTYPES:
         raise NotImplementedError(
             f"the CUDA tile kernel needs one dtype among {SUPPORTED_DTYPES} "
-            f"for every array, got {sorted(dtypes)}"
+            f"for every floating array, got {sorted(dtypes)}"
         )
 
 
@@ -140,7 +159,7 @@ class _Emitter:
 def generate(spec: StencilSpec) -> tuple[str, str]:
     """``(kernel.cu, spec_body.cuh)`` sources for a lowered spec."""
     check_supported(spec)
-    names = list(spec.inputs)
+    names = float_inputs(spec)
     locals_ = spec.local_stages
     buffers = {n: i for i, n in enumerate(names)}
     for k, st in enumerate(locals_):
@@ -162,13 +181,14 @@ def generate(spec: StencilSpec) -> tuple[str, str]:
             "}",
         ]
         dst = "nxt" if st.is_output else f"buf[SASA_N_IN + {k}]"
-        calls.append(f"sasa_run_stage<{k}>({dst}, env, org, g);")
+        calls.append(f"sasa_run_stage<{k}>({dst}, env, org, g, lo, hi);")
     body.append("#define SASA_STAGE_CALLS " + " ".join(calls))
     b = spec.boundary
     tu = "\n".join([
         f"// {spec.name}: generated by kernels/cuda_build.py.",
         f"#define SASA_N_IN {len(names)}",
         f"#define SASA_ITER {names.index(spec.iterate_input)}",
+        f"#define SASA_N_HALO {len(spec.halo_index_inputs)}",
         f"#define SASA_N_LOCAL {len(locals_)}",
         f"#define SASA_BOUNDARY {BOUNDARY_CODES[b.kind]}",
         f"#define SASA_BVALUE {float_literal(b.value)}",
@@ -205,7 +225,7 @@ def kernel_key(spec: StencilSpec) -> str:
 
 
 class KernelLib:
-    """One built tile kernel: ``launch(ins, out, geom, stream)``."""
+    """One built tile kernel: ``launch(ins, maps, out, geom, stream)``."""
 
     def __init__(self, path: Path, key: str, build_log: str = ""):
         self.path = path
@@ -214,16 +234,17 @@ class KernelLib:
         self._lib = ctypes.CDLL(str(path))
         fn = self._lib.sasa_launch
         fn.argtypes = [
-            ctypes.POINTER(ctypes.c_uint64), ctypes.c_void_p,
-            ctypes.POINTER(ctypes.c_int), ctypes.c_void_p,
+            ctypes.POINTER(ctypes.c_uint64), ctypes.POINTER(ctypes.c_uint64),
+            ctypes.c_void_p, ctypes.POINTER(ctypes.c_int), ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
         self._fn = fn
 
-    def launch(self, in_ptrs, out_ptr: int, geom, stream: int) -> int:
+    def launch(self, in_ptrs, map_ptrs, out_ptr: int, geom, stream: int) -> int:
         ins = (ctypes.c_uint64 * len(in_ptrs))(*in_ptrs)
+        maps = (ctypes.c_uint64 * max(len(map_ptrs), 1))(*map_ptrs)
         g = (ctypes.c_int * len(geom))(*geom)
-        return int(self._fn(ins, ctypes.c_void_p(out_ptr), g,
+        return int(self._fn(ins, maps, ctypes.c_void_p(out_ptr), g,
                             ctypes.c_void_p(stream)))
 
 

@@ -64,7 +64,8 @@ def plan_blocks(
         r=r, h=h, grid_shape=grid, tile=tile, n_tiles=n_tiles,
         window=window, tiles=math.prod(n_tiles),
         window_cells=math.prod(window),
-        n_buffers=spec.num_inputs + len(spec.local_stages) + 1,
+        n_buffers=(len(cuda_build.float_inputs(spec))
+                   + len(spec.local_stages) + 1),
     )
 
 
@@ -72,9 +73,12 @@ def smem_bytes_estimate(
     spec: StencilSpec, s: int, tile: Sequence[int] | None = None
 ) -> int:
     """Dynamic shared memory of one thread block: one float window per
-    input, per local stage and for the next iterate."""
+    floating input, per local stage and for the next iterate, plus the
+    per-axis belt bounds of a spec with halo-index maps.  The int32 index
+    maps themselves are read from global memory and never staged."""
     g = plan_blocks(spec, s, tile)
-    return g["n_buffers"] * g["window_cells"] * 4
+    belt = 6 * 4 if spec.halo_index_inputs else 0
+    return g["n_buffers"] * g["window_cells"] * 4 + belt
 
 
 # --------------------------------------------------------------------------
@@ -165,7 +169,11 @@ def launch_tile_kernel(
     tile: Sequence[int] | None = None,
 ) -> torch.Tensor:
     """Launch the tile kernel once over ``(B,) + spec.shape`` inputs (in
-    ``spec.inputs`` order) on the current stream; returns the output."""
+    ``spec.inputs`` order) on the current stream; returns the output.
+
+    Floating inputs are passed as the kernel's windows, halo-index maps
+    (int32) through their own pointer array; wrap-index maps are consumed
+    by the round loop between rounds and not passed."""
     cuda_build.check_supported(spec)
     g = plan_blocks(spec, s, tile)
     smem = smem_bytes_estimate(spec, s, tile)
@@ -178,10 +186,13 @@ def launch_tile_kernel(
     dtype = torch_dtype(spec.dtype)
     B = batched[0].shape[0]
     want = (B,) + tuple(spec.shape)
-    for n, a in zip(spec.inputs, batched):
-        if a.device.type != "cuda" or a.dtype != dtype or tuple(a.shape) != want:
+    index = set(cuda_build.index_inputs(spec))
+    by_name = dict(zip(spec.inputs, batched))
+    for n, a in by_name.items():
+        dt = torch.int32 if n in index else dtype
+        if a.device.type != "cuda" or a.dtype != dt or tuple(a.shape) != want:
             raise ValueError(
-                f"input {n!r}: the kernel takes a CUDA {dtype} tensor shaped "
+                f"input {n!r}: the kernel takes a CUDA {dt} tensor shaped "
                 f"{want}, got {a.device} {a.dtype} {tuple(a.shape)}"
             )
         if not a.is_contiguous():
@@ -202,7 +213,9 @@ def launch_tile_kernel(
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.launch(
-            [a.data_ptr() for a in batched], out.data_ptr(), geom, stream
+            [by_name[n].data_ptr() for n in cuda_build.float_inputs(spec)],
+            [by_name[n].data_ptr() for n in spec.halo_index_inputs],
+            out.data_ptr(), geom, stream,
         )
     if rc != 0:
         raise RuntimeError(

@@ -21,11 +21,18 @@ and records a CUDA event, ``run.ready(pending)`` polls that event
 (``torch.cuda.Event.query``), and ``run.finalize(pending)`` waits and
 returns numpy (bfloat16 results come back as float32, which numpy lacks).
 ``run(arrays)`` is the validated synchronous composition.
+
+:func:`build_bucket_runner` wraps a runner built for a padded canonical
+**bucket** shape so it serves any grid that fits inside the bucket, with
+the real grid's boundary rule -- zero, constant, replicate, or periodic --
+re-imposed from per-request streamed inputs (mask, halo-index maps, or
+host-streamed wrap margins and wrap maps; see
+:mod:`repro_torch.runtime.bucketing`).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Mapping
+from typing import Mapping, Sequence
 
 import numpy as np
 import torch
@@ -35,6 +42,33 @@ from repro_torch.core.spec import StencilSpec
 from repro_torch.kernels import ops, pipeline
 from repro_torch.kernels.blockops import torch_dtype
 from repro_torch.kernels.stencil import default_tile
+from repro_torch.runtime.bucketing import bucket_plan
+
+
+class DegradedDesignWarning(RuntimeWarning):
+    """A design is executing with less parallelism than its config claims."""
+
+
+def is_degraded(cfg: ParallelismConfig, n_avail: int) -> bool:
+    """True when a pool of ``n_avail`` devices cannot realise ``cfg``'s
+    parallelism.  The one sanctioned exception is a temporal design on a
+    one-device host: the PE cascade degenerates to fused rounds on one
+    card with the fusion depth (and the model's single-card prediction)
+    preserved."""
+    n_dev = min(cfg.devices_needed, n_avail)
+    return n_dev < cfg.devices_needed and not (
+        cfg.variant == "temporal" and n_dev <= 1
+    )
+
+
+def degraded_message(cfg: ParallelismConfig, n_avail: int) -> str:
+    n_dev = min(cfg.devices_needed, n_avail)
+    return (
+        f"design {cfg.variant}(k={cfg.k}, s={cfg.s}) needs "
+        f"{cfg.devices_needed} device(s) but only {n_avail} are available; "
+        f"executing on {n_dev} loses the configured parallelism while "
+        f"run.cfg still claims it"
+    )
 
 
 def resolve_backend(device: torch.device) -> str:
@@ -146,7 +180,7 @@ def build_batched_runner(
         for n, (dt, _) in spec.inputs.items():
             a = arrays[n]
             t = a if isinstance(a, torch.Tensor) else torch.from_numpy(
-                np.ascontiguousarray(a)
+                np.require(a, requirements="CW")   # broadcast views copy
             )
             if dev.type == "cuda" and t.device.type == "cpu":
                 t = t.pin_memory()
@@ -184,9 +218,81 @@ def build_batched_runner(
     run.path = path
     run.backend = backend
     run.device = dev
+    run.n_devices = 1
+    run.devices_requested = cfg.devices_needed
+    run.degraded = is_degraded(cfg, 1)
     run.tile = tile
     run.stage = stage
     run.dispatch = dispatch
     run.ready = ready
     run.finalize = finalize
+    return run
+
+
+def build_bucket_runner(
+    spec: StencilSpec,
+    bucket_shape: Sequence[int],
+    cfg: ParallelismConfig,
+    iterations: int | None = None,
+    device=None,
+    inner=None,
+    wrap_rounds: int | None = None,
+):
+    """Streamed-boundary wrapper: a design built for ``bucket_shape``
+    serving any fitting grid with the spec's exact boundary semantics.
+
+    The inner runner is a batched runner for the **streamed bucket spec**
+    (:func:`repro_torch.runtime.bucketing.bucket_spec`); the wrapper
+    stages each request through the bucket's host plan
+    (:class:`repro_torch.runtime.bucketing.BucketPlan`): inputs are laid
+    into the bucket with the boundary's margin fill (zeros/constant,
+    clamped edge, or the wrapped periodic halo computed from the *real*
+    shape), alongside the per-request streamed service inputs -- the
+    ``_mask`` woven into every stage, the replicate halo-index maps the
+    tile kernel consumes after every stage, or the periodic wrap maps the
+    round loop consumes between rounds.
+
+    ``run(arrays)`` takes one uniform-shape batch ``{name: (B,) + grid}``
+    with ``grid + 2 * margins <= bucket_shape`` per axis and returns
+    ``(B,) + grid``.  Serving layers that mix grid shapes in one
+    micro-batch stage each entry through ``run.plan`` and drive
+    ``run.stage`` / ``run.dispatch`` / ``run.finalize`` directly.
+
+    Pass ``inner`` to wrap an already-built batched runner for the
+    streamed bucket spec (the design-cache path).  ``wrap_rounds``
+    (periodic only) serves from the narrow ``wrap_rounds * radius``
+    margin.  ``device`` defaults to ``cuda`` and raises without it.
+    """
+    bucket_shape = tuple(int(b) for b in bucket_shape)
+    plan = bucket_plan(
+        spec, bucket_shape, iterations=iterations, wrap_rounds=wrap_rounds
+    )
+    mspec = plan.mspec
+    if inner is None:
+        inner = build_batched_runner(
+            mspec, cfg, iterations=iterations, device=device
+        )
+
+    def run(arrays: Mapping[str, object]) -> np.ndarray:
+        B, grid = validate_batch(spec, arrays, exact=False)
+        padded = {
+            n: plan.place_entry(np.asarray(arrays[n]), batched=True)
+            for n in spec.inputs
+        }
+        for sname, svc in plan.service_entry(grid).items():
+            padded[sname] = np.broadcast_to(svc[None], (B,) + bucket_shape)
+        out = inner(padded)
+        return out[(slice(None),) + plan.out_index(grid)]
+
+    run.spec = spec
+    run.masked_spec = mspec
+    run.mask_name = plan.mask_name
+    run.bucket_shape = bucket_shape
+    run.plan = plan
+    run.wrap_rounds = plan.wrap_rounds
+    run.inner = inner
+    for attr in ("cfg", "iterations", "path", "backend", "device",
+                 "n_devices", "devices_requested", "degraded", "tile",
+                 "stage", "dispatch", "ready", "finalize"):
+        setattr(run, attr, getattr(inner, attr))
     return run

@@ -18,6 +18,7 @@ from repro_torch.configs import stencils
 from repro_torch.core.ir import lower
 from repro_torch.core.spec import Boundary
 from repro_torch.kernels import ops, pipeline, stencil
+from repro_torch.runtime.bucketing import bucket_plan
 
 RTOL = {"float32": 2e-4, "bfloat16": 2e-2}   # tests/test_kernels.py::tol
 
@@ -71,13 +72,35 @@ def test_constant_boundary_and_bf16_on_card(cuda_device):
 
 
 @pytest.mark.gpu
-def test_kernel_refuses_streamed_specs_on_card(cuda_device):
-    spec = lower(stencils.jacobi2d(shape=(8, 8))).spec
+@pytest.mark.parametrize("kind", ["replicate", "periodic"])
+def test_streamed_kernels_match_plain_on_card(cuda_device, kind):
+    """Bucket specs with per-entry maps (two real grids and the all-zero
+    filler): kernel vs plain per round, K2 bitwise K1 per entry."""
     spec = dataclasses.replace(
-        spec, inputs={**spec.inputs, "w": ("int32", (8, 8))},
-        wrap_index_inputs=("w", "w"), wrap_round_depth=1,
+        lower(stencils.get("sobel2d_replicate", shape=(70, 45), iterations=4)).spec,
+        boundary=Boundary(kind),
     )
-    t = {"in_1": torch.zeros(8, 8, device=cuda_device),
-         "w": torch.zeros(8, 8, dtype=torch.int32, device=cuda_device)}
-    with pytest.raises(NotImplementedError):
-        stencil.stencil_cuda(spec, t, 1)
+    plan = bucket_plan(spec, (90, 70), iterations=4,
+                       wrap_rounds=2 if kind == "periodic" else None)
+    rng = np.random.default_rng(14)
+    entries = []
+    for shape in ((70, 45), (61, 40)):
+        e = {n: plan.place_entry(rng.standard_normal(shape).astype(np.float32))
+             for n in spec.inputs}
+        e.update(plan.service_entry(shape))
+        entries.append(e)
+    e = {n: plan.filler_entry(n) for n in spec.inputs}
+    e.update(plan.service_filler())
+    entries.append(e)
+    mspec = plan.mspec
+    t = ops.to_device(mspec, {n: np.stack([x[n] for x in entries])
+                              for n in mspec.inputs}, cuda_device)
+    for s in (1, 2, 4):
+        both = pipeline.stencil_cuda_batched(mspec, t, s)
+        for b in range(3):
+            one = {n: a[b] for n, a in t.items()}
+            got = stencil.stencil_cuda(mspec, one, s)
+            want = stencil.stencil_torch_tiled(mspec, one, s)
+            scale = max(1.0, float(want.abs().max()))
+            assert float((got - want).abs().max()) <= RTOL["float32"] * scale
+            assert torch.equal(both[b], got), (kind, s, b)

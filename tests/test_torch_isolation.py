@@ -50,6 +50,9 @@ def test_port_imports_neither_jax_nor_repro():
     assert {
         "repro_torch.kernels.stencil", "repro_torch.kernels.pipeline",
         "repro_torch.core.autotune", "repro_torch.runtime.batching",
+        "repro_torch.core.analysis", "repro_torch.core.numerics",
+        "repro_torch.runtime.bucketing", "repro_torch.runtime.cache",
+        "repro_torch.serve", "repro_torch.serve.engine",
     } <= set(report["modules"])
 
 

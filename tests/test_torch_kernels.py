@@ -13,7 +13,9 @@ and boundary rule).  They are held against:
     bitwise.
 
 The kernels themselves run only on the card: ``tests/test_torch_gpu.py``
-holds them against these plain versions there and skips elsewhere.
+holds them against these plain versions there and skips elsewhere.  Here
+the generated sources of bucket specs (streamed halo and wrap maps) are
+checked, and the shared-memory estimate that sizes them.
 """
 from __future__ import annotations
 
@@ -36,6 +38,7 @@ from repro_torch.core import dsl as pt_dsl
 from repro_torch.core.ir import lower
 from repro_torch.core.spec import Boundary
 from repro_torch.kernels import blockops, cuda_build, ops, pipeline, stencil
+from repro_torch.runtime.bucketing import bucket_plan
 
 RTOL_F32 = 2e-4   # tests/test_kernels.py::tol
 RTOL_BF16 = 3e-2  # tests/test_kernels.py::test_bfloat16_kernel
@@ -267,6 +270,18 @@ def test_plan_blocks_and_smem_estimate():
     small = stencil.plan_blocks(lower(_port(
         ref_stencils.get("jacobi2d", shape=(7, 5)))).spec, 2)
     assert small["tile"] == (7, 5)       # clipped to the grid
+    # a replicate bucket spec stages the data and the mask as float
+    # windows (+ the next iterate); its two int32 halo maps are read from
+    # global memory, and only the per-axis belt bounds sit in shared memory
+    jac = lower(_port(ref_stencils.get("jacobi2d", shape=(60, 60)))).spec
+    rep = bucket_plan(dataclasses.replace(jac, boundary=Boundary("replicate")),
+                      (64, 64)).mspec
+    assert rep.num_inputs == 4 and stencil.plan_blocks(rep, 4)["n_buffers"] == 3
+    assert stencil.smem_bytes_estimate(rep, 4) == 3 * 40 * 40 * 4 + 6 * 4
+    wrap = bucket_plan(dataclasses.replace(jac, boundary=Boundary("periodic")),
+                       (64, 64), wrap_rounds=2).mspec
+    assert stencil.smem_bytes_estimate(wrap, 2) == \
+        stencil.smem_bytes_estimate(jac, 2)
 
 
 def test_cuda_kernel_refuses_what_it_cannot_run():
@@ -274,14 +289,32 @@ def test_cuda_kernel_refuses_what_it_cannot_run():
         "kernel: M\ninput float: a(6, 6)\ninput double: b(6, 6)\n"
         "iterate: a\noutput float: c(0,0) = a(0,0) + b(0,0)\n"
     )
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError):    # mixed floating dtypes
         cuda_build.check_supported(_port(ref_spec))
+    # an index input that is not int32
     spec = dataclasses.replace(
         lower(_port(ref_stencils.get("jacobi2d", shape=(6, 6)))).spec,
         wrap_index_inputs=("in_1", "in_1"), wrap_round_depth=1,
     )
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="not int32"):
         cuda_build.check_supported(spec)
+
+
+@pytest.mark.parametrize("kind", ["zero", "constant", "replicate", "periodic"])
+def test_cuda_kernel_takes_bucket_specs(kind):
+    """Bucket specs build: int32 halo maps get their own pointer array
+    (SASA_N_HALO), wrap maps never reach the kernel, and only the floating
+    inputs are staged (SASA_N_IN)."""
+    jac = lower(_port(ref_stencils.get("jacobi2d", shape=(20, 14)))).spec
+    spec = dataclasses.replace(jac, boundary=Boundary(kind, 2.0 if kind == "constant" else 0.0))
+    plan = bucket_plan(spec, (40, 40), wrap_rounds=2 if kind == "periodic" else None)
+    cuda_build.check_supported(plan.mspec)
+    tu, body = cuda_build.generate(plan.mspec)
+    floats = 1 if kind == "periodic" else 2                # data (+ mask)
+    assert f"#define SASA_N_IN {floats}\n" in tu
+    halo = 2 if kind == "replicate" else 0
+    assert f"#define SASA_N_HALO {halo}\n" in tu
+    assert cuda_build.float_inputs(plan.mspec) == list(plan.mspec.inputs)[:floats]
 
 
 def test_generated_source_is_exact_and_structural():
