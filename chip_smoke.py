@@ -10,24 +10,30 @@ runs seven phases, each printing JSON lines:
 
   1. device    the card's name and power limit (``nvidia-smi``), versions;
   2. build     kernels built and seconds;
-  3. small     every stock kernel at s in {1, 2, 4} (all four boundary
-               kinds) and a bfloat16 spec: ``stencil_cuda`` against its
-               plain version on the card, and ``stencil_cuda_batched``
+  3. small     every stock kernel at s in {1, 2, 4, 8} (all four boundary
+               kinds) and a bfloat16 spec, on a small grid (edge blocks
+               only) and a larger one (interior blocks at s = 8 too), on
+               the default tile and a taller one: ``stencil_cuda`` against
+               its plain version on the card, and ``stencil_cuda_batched``
                bitwise against ``stencil_cuda`` per entry.  Then the
                streamed bucket specs of JACOBI2D and SOBEL2D-REPLICATE
                under replicate (halo-index maps) and periodic (wrap maps),
                three entries with different maps, one of them the all-zero
-               batch filler: the same checks per round, and the round loop
-               (wrap maps consumed between rounds) against its plain
-               version;
+               batch filler, on the default tile and a 16x16 one (tiles
+               wholly in the padding): the same checks per round, and the
+               round loop (wrap maps consumed between rounds) against its
+               plain version;
   4. main      the port's main path at the paper's sizes:
                ``autotune(DSL, device="cuda")`` then ``design.runner``, with
                the launch counters read around the run, the error against
                the plain version, median times and achieved bandwidth,
                then the ranker's prediction against K1's time at every
-               fusion depth for JACOBI2D 4096x4096 (``sweep``);
+               fusion depth and tile it ranks for JACOBI2D 4096x4096
+               (``sweep``), with the measured time per cell update;
   5. batched   ``build_batched_runner`` with ``buffer_depth=2`` (K2) on a
-               batch of 8, bitwise against K1 per entry;
+               batch of 8, bitwise against K1 per entry, and one round at
+               s=1 against one ``F.conv2d`` call over the batch (TF32 off),
+               timed only as a yardstick;
   6. yardstick JACOBI2D at s=1 against one ``F.conv2d`` call (cuDNN with
                TF32 off), timed only as a yardstick;
   7. serve     bucketed serving at the paper's width: ``StencilServer``
@@ -57,6 +63,10 @@ from pathlib import Path
 
 TOL = {"float32": 2e-4, "bfloat16": 2e-2}   # tests/test_kernels.py::tol
 SMALL_2D, SMALL_3D = (100, 77), (21, 13, 40)
+# grids with interior blocks at s = 8 (windows wholly inside the grid)
+LARGER_2D, LARGER_3D = (200, 150), (37, 40, 41)
+SMALL_S = (1, 2, 4, 8)
+TALL_ROWS = {2: 64, 3: 16}   # the non-default tile row extent checked
 MAIN_CASES = [  # (stock kernel, shape); 16 iterations each
     ("jacobi2d", (9720, 1024)),
     ("jacobi2d", (4096, 4096)),
@@ -116,7 +126,7 @@ def main() -> int:
     from repro_torch.core import dsl
     from repro_torch.core.autotune import autotune
     from repro_torch.core.ir import lower
-    from repro_torch.core.model import ParallelismConfig
+    from repro_torch.core.model import ParallelismConfig, resident_blocks
     from repro_torch.core.platform import gpu_platform_for
     from repro_torch.core.spec import Boundary
     from repro_torch.kernels import cuda_build, ops, pipeline, stencil
@@ -148,8 +158,11 @@ def main() -> int:
          torch=torch.__version__, cuda=torch.version.cuda,
          python=sys.version.split()[0])
 
-    def timed(fn, reps: int, warm: int = 2) -> float:
-        """Median ms of ``fn`` over ``reps`` runs, each between CUDA events."""
+    def timed(fn, reps: int, warm: int = 2, inner: int = 1) -> float:
+        """Median ms of one call of ``fn`` over ``reps`` samples, each
+        ``inner`` calls back to back between CUDA events (so the host's
+        launch overhead hides behind the device's work), divided by
+        ``inner``."""
         for _ in range(warm):
             fn()
         torch.cuda.synchronize()
@@ -158,10 +171,11 @@ def main() -> int:
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
-            fn()
+            for _ in range(inner):
+                fn()
             b.record()
             b.synchronize()
-            times.append(a.elapsed_time(b))
+            times.append(a.elapsed_time(b) / inner)
         return float(np.median(times))
 
     def bound_ms(spec, batch: int, iterations: int) -> tuple[float, str]:
@@ -215,33 +229,49 @@ def main() -> int:
          seconds=round(time.perf_counter() - t0, 3), ptxas_jacobi2d=ptxas)
 
     # ---- 3. small: kernel vs plain, K2 vs K1 ------------------------------
+    def small_variants(spec):
+        """The spec on its small grid and on the larger one (bf16 keeps
+        its own), each with the default tile and the taller one."""
+        shapes = [tuple(spec.shape)]
+        if spec.dtype == "float32":
+            shapes.append(LARGER_3D if spec.ndim == 3 else LARGER_2D)
+        for shape in shapes:
+            sp = dataclasses.replace(spec, inputs={
+                n: (dt, shape) for n, (dt, _) in spec.inputs.items()})
+            for rows in (0, TALL_ROWS[sp.ndim]):
+                yield sp, stencil.default_tile(sp.ndim, rows)
+
     kinds = set()
-    for spec in small:
-        kinds.add(spec.boundary.kind)
-        arrays = inputs(spec, batch=3)
-        t = ops.to_device(spec, arrays, dev)
-        errs, bitwise = [], True
-        for s in (1, 2, 4):
-            per_entry = []
-            for b in range(3):
-                one = {n: a[b] for n, a in t.items()}
-                got = stencil.stencil_cuda(spec, one, s)
-                want = stencil.stencil_torch_tiled(spec, one, s)
+    for spec0 in small:
+        kinds.add(spec0.boundary.kind)
+        errs, bitwise, runs = [], True, []
+        for spec, tile in small_variants(spec0):
+            arrays = inputs(spec, batch=3)
+            t = ops.to_device(spec, arrays, dev)
+            for s in SMALL_S:
+                if stencil.smem_bytes_estimate(spec, s, tile) > gpu.smem_per_block:
+                    continue
+                runs.append([list(spec.shape), list(tile), s])
+                per_entry = []
+                for b in range(3):
+                    one = {n: a[b] for n, a in t.items()}
+                    got = stencil.stencil_cuda(spec, one, s, tile)
+                    want = stencil.stencil_torch_tiled(spec, one, s, tile)
+                    torch.cuda.synchronize()
+                    err = max_err(got, want)
+                    scale = max(1.0, float(want.float().abs().max()))
+                    check(err <= TOL[spec.dtype] * scale,
+                          f"{spec.name} {spec.shape} tile={tile} s={s}: kernel "
+                          f"vs plain {err} > {TOL[spec.dtype]} x {scale}")
+                    errs.append(err / scale)
+                    per_entry.append(got)
+                both = pipeline.stencil_cuda_batched(spec, t, s, tile)
                 torch.cuda.synchronize()
-                err = max_err(got, want)
-                scale = max(1.0, float(want.float().abs().max()))
-                check(err <= TOL[spec.dtype] * scale,
-                      f"{spec.name} s={s}: kernel vs plain {err} > "
-                      f"{TOL[spec.dtype]} x {scale}")
-                errs.append(err / scale)
-                per_entry.append(got)
-            both = pipeline.stencil_cuda_batched(spec, t, s)
-            torch.cuda.synchronize()
-            bitwise &= all(torch.equal(both[b], per_entry[b]) for b in range(3))
-        check(bitwise, f"{spec.name}: K2 differs from K1 per entry")
-        emit(phase="small", spec=spec.name, boundary=spec.boundary.kind,
-             dtype=spec.dtype, shape=list(spec.shape), s=[1, 2, 4],
-             max_rel_err=max(errs), tol=TOL[spec.dtype], k2_bitwise=bitwise)
+                bitwise &= all(torch.equal(both[b], per_entry[b]) for b in range(3))
+        check(bitwise, f"{spec0.name}: K2 differs from K1 per entry")
+        emit(phase="small", spec=spec0.name, boundary=spec0.boundary.kind,
+             dtype=spec0.dtype, runs=len(runs), shapes_tiles_s=runs,
+             max_rel_err=max(errs), tol=TOL[spec0.dtype], k2_bitwise=bitwise)
     check(kinds == {"zero", "constant", "replicate", "periodic"},
           f"boundary kinds covered: {sorted(kinds)}")
 
@@ -265,16 +295,17 @@ def main() -> int:
         t = ops.to_device(mspec, {n: np.stack([e[n] for e in entries])
                                   for n in mspec.inputs}, dev)
         errs, bitwise = [], True
-        for s in (1, 2, 4):
-            both = pipeline.stencil_cuda_batched(mspec, t, s)
-            for b in range(3):
-                one = {n: a[b] for n, a in t.items()}
-                got = stencil.stencil_cuda(mspec, one, s)
-                want = stencil.stencil_torch_tiled(mspec, one, s)
-                torch.cuda.synchronize()
-                scale = max(1.0, float(want.abs().max()))
-                errs.append(max_err(got, want) / scale)
-                bitwise &= torch.equal(both[b], got)
+        for tile in (None, (16, 16)):    # (16, 16): tiles wholly in padding
+            for s in SMALL_S:
+                both = pipeline.stencil_cuda_batched(mspec, t, s, tile)
+                for b in range(3):
+                    one = {n: a[b] for n, a in t.items()}
+                    got = stencil.stencil_cuda(mspec, one, s, tile)
+                    want = stencil.stencil_torch_tiled(mspec, one, s, tile)
+                    torch.cuda.synchronize()
+                    scale = max(1.0, float(want.abs().max()))
+                    errs.append(max_err(got, want) / scale)
+                    bitwise &= torch.equal(both[b], got)
         rounds = pipeline.stencil_run_batched(mspec, t, 4, s=1)
         rounds_plain = ops.run_rounds(mspec, t, 4, 1,
                                       pipeline.stencil_torch_pipeline)
@@ -286,7 +317,8 @@ def main() -> int:
         streamed_err = max(streamed_err, max(errs))
         emit(phase="small", spec=mspec.name, boundary=spec.boundary.kind,
              streamed=list(plan.service_names), bucket=list(plan.bucket),
-             dtype=mspec.dtype, s=[1, 2, 4], rounds_iterations=4,
+             dtype=mspec.dtype, s=list(SMALL_S), tiles=["default", [16, 16]],
+             rounds_iterations=4,
              max_rel_err=max(errs), tol=TOL[mspec.dtype], k2_bitwise=bitwise)
 
     # ---- 4. main path -----------------------------------------------------
@@ -315,42 +347,67 @@ def main() -> int:
         check(err <= TOL[spec.dtype] * scale,
               f"{key} {shape}: main path vs plain {err} > tol x {scale}")
         staged = run.batched.stage({n: a[None] for n, a in arrays.items()})
-        ms = timed(lambda: run.batched.dispatch(staged), reps=10)
+        ms = timed(lambda: run.batched.dispatch(staged), reps=10, inner=5)
         plain_ms = timed(lambda: plain_run(spec, t, ITERATIONS, cfg.s,
                                            run.batched.tile), reps=3, warm=1)
         b_ms, b_by = bound_ms(spec, 1, ITERATIONS)
         nbytes = (spec.num_inputs + 1) * spec.cells * spec.itemsize
         emit(phase="main", spec=spec.name, shape=list(shape),
-             iterations=ITERATIONS, config=dict(s=cfg.s, buffer_depth=cfg.buffer_depth),
+             iterations=ITERATIONS,
+             config=dict(s=cfg.s, tile=list(run.batched.tile),
+                         buffer_depth=cfg.buffer_depth),
              path=run.path, launches=launches, first_call_s=round(wall, 3),
              max_abs_err=err, scale=scale, ms=ms, plain_ms=plain_ms,
              bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / ms,
              gb_per_s=nbytes / ms / 1e6,
              predicted_ms=design.prediction.latency * 1e3,
-             predicted_hbm_mb=design.prediction.hbm_bytes / 1e6)
+             predicted_hbm_mb=design.prediction.hbm_bytes / 1e6,
+             cell_updates=design.prediction.cell_updates)
 
-    # the model against the kernel at every fusion depth it ranks
+    # the model against the kernel at every fusion depth and tile it ranks
     spec = lower(stencils.jacobi2d(shape=(4096, 4096), iterations=ITERATIONS)).spec
     t = ops.to_device(spec, inputs(spec), dev)
-    ranking = autotune(spec, device="cuda", build=False).ranking
-    for pred in ranking:
+    tuned = autotune(spec, device="cuda", build=False)
+    sweep, fit = [], []
+    for pred in tuned.ranking:
         if pred.config.buffer_depth:
             continue
-        s = pred.config.s
+        s, tile = pred.config.s, stencil.default_tile(2, pred.config.tile_rows)
+        ms = timed(lambda: ops.stencil_run(spec, t, ITERATIONS, s=s, tile=tile),
+                   reps=10, inner=3)
+        sweep.append((ms, s, tile))
         emit(phase="sweep", spec=spec.name, shape=[4096, 4096],
-             iterations=ITERATIONS, s=s,
-             smem_bytes=stencil.smem_bytes_estimate(spec, s),
-             ms=timed(lambda: ops.stencil_run(spec, t, ITERATIONS, s=s),
-                      reps=10),
+             iterations=ITERATIONS, s=s, tile=list(tile),
+             smem_bytes=stencil.smem_bytes_estimate(spec, s, tile), ms=ms,
              predicted_ms=pred.latency * 1e3,
              predicted_compute_ms=pred.compute_term * 1e3,
-             predicted_memory_ms=pred.memory_term * 1e3)
+             predicted_memory_ms=pred.memory_term * 1e3,
+             cell_updates=pred.cell_updates,
+             measured_s_per_update=ms * 1e-3 / pred.cell_updates,
+             resident_blocks=resident_blocks(int(pred.smem_bytes), gpu),
+             ranked_first=pred is tuned.prediction)
+        if s >= 4 and resident_blocks(int(pred.smem_bytes), gpu) >= gpu.full_rate_blocks:
+            fit.append((ms - pred.memory_term * 1e3) * 1e-3 / pred.cell_updates)
+    best = min(sweep)
+    picked = next(m for m, s, tile in sweep
+                  if (s, tile) == (tuned.config.s, stencil.default_tile(
+                      2, tuned.config.tile_rows)))
+    emit(phase="sweep_summary", picked=dict(s=tuned.config.s,
+         tile_rows=tuned.config.tile_rows), picked_ms=picked,
+         fastest=dict(s=best[1], tile=list(best[2])), fastest_ms=best[0],
+         picked_over_fastest=picked / best[0],
+         # the ranker's cell_update_s as this run measures it (s >= 4,
+         # full-rate occupancy): (measured - memory term) / updates
+         fitted_s_per_update=float(np.median(fit)) if fit else None,
+         platform_s_per_update=gpu.cell_update_s)
 
     # ---- 5. batched: K2 on a batch of 8 ------------------------------------
     spec = lower(stencils.jacobi2d(shape=(9720, 1024), iterations=ITERATIONS)).spec
-    s_main = autotune(spec, device="cuda", build=False).config.s
+    cfg_main = autotune(spec, device="cuda", build=False).config
+    s_main = cfg_main.s
     run = build_batched_runner(
-        spec, ParallelismConfig("temporal", s=s_main, buffer_depth=2),
+        spec, ParallelismConfig("temporal", s=s_main, buffer_depth=2,
+                                tile_rows=cfg_main.tile_rows),
         device="cuda",
     )
     batch = inputs(spec, batch=8)
@@ -375,14 +432,27 @@ def main() -> int:
     k2_err = max_err(k2_out, k2_plain)
     check(k2_err <= TOL[spec.dtype] * max(1.0, float(k2_plain.abs().max())),
           f"K2 vs plain {k2_err}")
-    k2_ms = timed(one_round, reps=10)
+    round_ms = timed(one_round, reps=10, inner=5)
+    # K2 at s=1 against one F.conv2d over the batch (its yardstick)
+    xb = t["in_1"].view(8, 1, *spec.shape)
+    w5 = torch.tensor([[0.0, 1.0, 0.0], [1.0, 1.0, 1.0], [0.0, 1.0, 0.0]],
+                      device=dev).div_(5).view(1, 1, 3, 3)
+    k2_s1 = lambda: pipeline.stencil_cuda_batched(spec, t, 1, run.tile)
+    k2_conv = lambda: F.conv2d(xb, w5, padding=1)
+    conv_err = max_err(k2_conv().view(8, *spec.shape), k2_s1())
+    check(conv_err <= 1e-5 * max(1.0, float(xb.abs().max())),
+          f"batched conv2d yardstick computes another function: {conv_err}")
+    k2_ms = timed(k2_s1, reps=10, inner=10)
+    k2_library_ms = timed(k2_conv, reps=10, inner=10)
     k2_plain_ms = timed(lambda: pipeline.stencil_torch_pipeline(
-        spec, t, s_main, run.tile), reps=3, warm=1)
-    k2_bound, k2_by = bound_ms(spec, 8, s_main)
+        spec, t, 1, run.tile), reps=3, warm=1)
+    k2_bound, k2_by = bound_ms(spec, 8, 1)
     emit(phase="batched", spec=spec.name, batch=8, s=s_main,
-         launches=k2_main_launches, k2_bitwise_vs_k1=k2_bitwise,
-         round_ms=k2_ms, plain_round_ms=k2_plain_ms, bound_ms=k2_bound,
-         bound_by=k2_by, max_abs_err=k2_err,
+         tile=list(run.tile), launches=k2_main_launches,
+         k2_bitwise_vs_k1=k2_bitwise, round_ms=round_ms,
+         max_abs_err=k2_err, s1_ms=k2_ms, s1_plain_ms=k2_plain_ms,
+         s1_library_ms=k2_library_ms, s1_bound_ms=k2_bound, s1_bound_by=k2_by,
+         conv_vs_kernel_err=conv_err, cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
          run_ms=timed(lambda: run.dispatch(run.stage(batch)), reps=5, warm=1))
 
     # ---- 6. yardstick: one JACOBI2D iteration against F.conv2d -------------
@@ -400,9 +470,9 @@ def main() -> int:
     conv_err = max_err(conv().view(4096, 4096), k1_out)
     check(conv_err <= 1e-5 * max(1.0, float(k1_out.abs().max())),
           f"conv2d yardstick computes another function: {conv_err}")
-    k1_ms = timed(lambda: stencil.stencil_cuda(spec, t, 1), reps=20)
+    k1_ms = timed(lambda: stencil.stencil_cuda(spec, t, 1), reps=20, inner=10)
     k1_plain_ms = timed(lambda: stencil.stencil_torch_tiled(spec, t, 1), reps=5)
-    library_ms = timed(conv, reps=20)
+    library_ms = timed(conv, reps=20, inner=10)
     k1_bound, k1_by = bound_ms(spec, 1, 1)
     emit(phase="yardstick", spec=spec.name, shape=[4096, 4096], s=1,
          cudnn_allow_tf32=torch.backends.cudnn.allow_tf32, ms=k1_ms,
@@ -514,7 +584,7 @@ def main() -> int:
              replaces="src/repro/kernels/stencil.py:96",
              launches=k1_main_launches, max_abs_err=k1_err, ms=k1_ms,
              plain_ms=k1_plain_ms, bound_ms=k1_bound, bound_by=k1_by,
-             library_ms=library_ms,
+             bound_share=k1_bound / k1_ms, library_ms=library_ms,
              serve_launches=serve_launches["stencil_cuda"],
              streamed_max_rel_err=streamed_err),
         dict(name="stencil_cuda_batched", route="cuda",
@@ -522,7 +592,7 @@ def main() -> int:
              replaces="src/repro/kernels/pipeline.py:85",
              launches=k2_main_launches, max_abs_err=k2_err, ms=k2_ms,
              plain_ms=k2_plain_ms, bound_ms=k2_bound, bound_by=k2_by,
-             library_ms=None,
+             bound_share=k2_bound / k2_ms, library_ms=k2_library_ms,
              serve_launches=serve_launches["stencil_cuda_batched"],
              streamed_max_rel_err=streamed_err),
     ]

@@ -15,10 +15,13 @@ Part 1 — paper-exact model (Eqs. 1-9) in FPGA cycles for the Alveo U280.
 Part 2 — GPU model for the CUDA tile kernel (one card).  A round of ``s``
   fused iterations launches one kernel over every tile of every axis; per
   round it reads each input window (tile + 2sr per axis, halo overlap
-  included) and writes the grid once, and it computes ``s`` stages over
-  every window cell.  The fusion limit comes from the kernel's own tile
-  geometry (:func:`repro_torch.kernels.stencil.smem_bytes_estimate`), so
-  the ranker and the kernel share one source of truth.
+  included) and writes the grid once, and every stage updates the cells
+  of its region of the shrinking trapezoid
+  (:func:`repro_torch.kernels.stencil.stage_regions`), each at a cost per
+  cell update measured on the card.  The fusion limit and the regions
+  come from the kernel's own geometry
+  (:func:`repro_torch.kernels.stencil.smem_bytes_estimate`), so the
+  ranker and the kernel share one source of truth.
 
     FPGA concept                      GPU concept
     ------------                      -----------
@@ -27,7 +30,7 @@ Part 2 — GPU model for the CUDA tile kernel (one card).  A round of ``s``
                                       residency (temporal blocking)
     redundant halo compute            redundant halo compute (identical)
 
-  Latency = max(compute, HBM) + one launch per round.
+  Latency = compute + HBM + one launch per round.
 """
 from __future__ import annotations
 
@@ -39,6 +42,7 @@ from repro_torch.kernels.stencil import (
     default_tile,
     plan_blocks,
     smem_bytes_estimate,
+    stage_regions,
 )
 
 VARIANTS = ("temporal", "spatial_r", "spatial_s", "hybrid_r", "hybrid_s")
@@ -85,6 +89,7 @@ class Prediction:
     flops: float                # per-device ops over the whole run
     rounds: int
     smem_bytes: float = 0.0     # shared memory of one thread block
+    cell_updates: float = 0.0   # GPU: stage cell updates over the whole run
     notes: str = ""
 
     @property
@@ -276,12 +281,22 @@ def smem_fusion_limit(
     :func:`~repro_torch.kernels.stencil.smem_bytes_estimate`, so the ranker
     never picks a depth the kernel would refuse.
     """
-    from repro_torch.kernels.stencil import smem_bytes_estimate
-
     s = 1
     while s < cap and smem_bytes_estimate(spec, s + 1, tile) <= gpu.smem_per_block:
         s += 1
     return s
+
+
+def _round_work(spec: StencilSpec, s: int, tile) -> tuple[int, int]:
+    """Cell updates and float32 operations of one block over one round of
+    ``s`` fused iterations: the cells of every stage's region."""
+    ops = [st.ops_per_cell for st in spec.stages]
+    updates = flops = 0
+    for reg in stage_regions(spec, s, tile):
+        cells = math.prod(reg.extent)
+        updates += cells
+        flops += cells * ops[reg.stage]
+    return updates, flops
 
 
 def predict_gpu(
@@ -297,9 +312,19 @@ def predict_gpu(
         the belt bounds, and every grid cell written once.  Streamed wrap
         maps are read between rounds by a per-axis gather over the grid
         (map and iterate read, iterate written);
-      * compute term: every stage of every fused iteration runs over the
-        whole window, ``ops_per_cell`` float32 operations per cell;
+      * compute term: the cell updates of every stage's region of the
+        shrinking trapezoid, summed over tiles and rounds (a ragged last
+        round has its own, shallower trapezoid), at ``gpu.cell_update_s``
+        each.  With fewer than ``gpu.full_rate_blocks`` blocks resident
+        per SM (shared memory bound) an update costs more, by the square
+        root of the shortfall (measured: 1.2x at 2 blocks, 1.7x at 1).
+        Blocks of a streamed spec past a request's real region update more
+        (the kernel's head comment); they are not charged;
       * one kernel launch per round.
+
+    The terms add: a block waits for its windows before its first stage
+    and writes its tile after its last, and on the card the sum tracks
+    the measured time where the larger term alone falls short.
     """
     from repro_torch.kernels.cuda_build import float_inputs
 
@@ -317,14 +342,18 @@ def predict_gpu(
     )
     rewrap = len(spec.wrap_index_inputs) * spec.cells * (4 + 2 * spec.itemsize)
     hbm_bytes = float(bytes_per_round * rounds + rewrap * (rounds - 1))
-    flops = float(window_cells * spec.ops_per_cell * it)
-    memory_term = hbm_bytes / gpu.hbm_bw
-    compute_term = flops / gpu.fp32_flops
+    full_u, full_f = _round_work(spec, s, tile)
+    last_u, last_f = _round_work(spec, it - (rounds - 1) * s, tile)
+    updates = float(g["tiles"] * ((rounds - 1) * full_u + last_u))
+    flops = float(g["tiles"] * ((rounds - 1) * full_f + last_f))
     smem = smem_bytes_estimate(spec, s, tile)
+    memory_term = hbm_bytes / gpu.hbm_bw
+    rate = min(1.0, resident_blocks(smem, gpu) / gpu.full_rate_blocks) ** 0.5
+    compute_term = updates * gpu.cell_update_s / rate
     notes = "batch-in-grid" if cfg.buffer_depth >= 2 else ""
     return Prediction(
         config=cfg,
-        latency=max(compute_term, memory_term) + rounds * gpu.launch_s,
+        latency=compute_term + memory_term + rounds * gpu.launch_s,
         compute_term=compute_term,
         memory_term=memory_term,
         collective_term=0.0,
@@ -333,22 +362,49 @@ def predict_gpu(
         flops=flops,
         rounds=rounds,
         smem_bytes=float(smem),
+        cell_updates=updates,
         notes=notes,
     )
+
+
+def resident_blocks(smem: int, gpu: GPUPlatform) -> int:
+    """Thread blocks of the tile kernel one SM holds at once: its shared
+    memory (1 KB per block taken by the system) or its 2048 threads."""
+    return max(1, min(2048 // 256, gpu.smem_per_sm // (smem + 1024)))
+
+
+# Row extents of the kernel tile the ranker weighs, per number of axes
+# (0 = the default tile's); a bigger tile cuts the halo's redundant
+# updates and costs shared memory.
+TILE_ROWS = {1: (0, 1024), 2: (0, 64, 128), 3: (0, 16)}
 
 
 def gpu_candidate_configs(
     spec: StencilSpec, gpu: GPUPlatform, iterations: int | None = None
 ) -> list[ParallelismConfig]:
-    """The single-device design space: temporal ``k=1`` at every fusion
-    depth the shared memory allows, each as K1 (``buffer_depth=0``) and as
-    the batch-in-grid K2 (``buffer_depth=2``)."""
+    """The single-device design space: temporal ``k=1`` for every tile row
+    extent of :data:`TILE_ROWS` at every fusion depth the shared memory
+    allows, each as K1 (``buffer_depth=0``) and as the batch-in-grid K2
+    (``buffer_depth=2``)."""
     it = spec.iterations if iterations is None else iterations
-    s_max = smem_fusion_limit(spec, gpu, default_tile(spec.ndim), cap=it)
     out: list[ParallelismConfig] = []
-    for s in _fusion_depths(min(it, s_max)):
-        out.append(ParallelismConfig("temporal", k=1, s=s))
-        out.append(ParallelismConfig("temporal", k=1, s=s, buffer_depth=2))
+    seen = set()
+    for rows in TILE_ROWS[spec.ndim]:
+        tile = default_tile(spec.ndim, rows)
+        clipped = plan_blocks(spec, 1, tile)["tile"]
+        if clipped in seen or (
+            rows and smem_bytes_estimate(spec, 1, tile) > gpu.smem_per_block
+        ):
+            # the grid clips it to a tile already weighed, or a taller tile
+            # does not fit (the default one stays, for SASA401 to report)
+            continue
+        seen.add(clipped)
+        s_max = smem_fusion_limit(spec, gpu, tile, cap=it)
+        for s in _fusion_depths(min(it, s_max)):
+            out.append(ParallelismConfig("temporal", k=1, s=s, tile_rows=rows))
+            out.append(ParallelismConfig(
+                "temporal", k=1, s=s, tile_rows=rows, buffer_depth=2,
+            ))
     return out
 
 

@@ -12,6 +12,12 @@
   prints beside every measurement.
   ``launch_s`` is the model's assumed fixed cost of one kernel launch, an
   assumption to be calibrated against chip runs, not a data-sheet figure.
+  ``cell_update_s`` is the card's time per stage cell update of the tile
+  kernel (one cell of one stage's region, all SMs busy) and
+  ``full_rate_blocks`` the thread blocks an SM must hold for that rate;
+  both are measured on the card (``chip_smoke.py`` phase ``sweep``), not
+  data-sheet figures.  ``smem_per_sm`` is the shared memory of one SM, of
+  which each resident block also takes 1 KB for the system.
 """
 from __future__ import annotations
 
@@ -45,13 +51,25 @@ class GPUPlatform:
     hbm_bw: float = 3.35e12               # B/s, 80 GB HBM3
     sms: int = 132
     smem_per_block: int = 232_448         # 227 KB opt-in dynamic shared memory
+    smem_per_sm: int = 233_472            # 228 KB of shared memory per SM
     l2_bytes: int = 50 * 2**20
     fp32_flops: float = 67e12             # CUDA-core float32, dense
     launch_s: float = 5e-6                # assumed per-launch cost (model)
+    # Seconds per stage cell update of the tile kernel, card-wide, with at
+    # least full_rate_blocks blocks resident per SM: the median over the
+    # sweep's configurations with s >= 4 and >= 3 resident blocks of
+    # (measured - memory term) / updates, JACOBI2D 4096x4096 on an
+    # "NVIDIA H100 80GB HBM3, 700.00 W" card (chip_smoke.py sweep_summary).
+    cell_update_s: float = 1.478e-12
+    full_rate_blocks: int = 3
 
 
 H100_SXM = GPUPlatform()
-H100_PCIE = GPUPlatform(name="h100-pcie", hbm_bw=2.0e12, sms=114, fp32_flops=51e12)
+# PCIe: the SXM update cost scaled by the float32 rates (not measured)
+H100_PCIE = GPUPlatform(
+    name="h100-pcie", hbm_bw=2.0e12, sms=114, fp32_flops=51e12,
+    cell_update_s=H100_SXM.cell_update_s * 67 / 51,
+)
 
 
 def gpu_platform_for(device_name: str) -> GPUPlatform:

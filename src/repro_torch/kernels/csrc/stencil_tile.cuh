@@ -13,6 +13,10 @@
 //   SASA_N_HALO      number of streamed int32 halo-index maps (0, or one
 //                    per real axis: a bucketed replicate spec)
 //   SASA_N_LOCAL     number of `local` stages
+//   SASA_NDIM        number of real axes (the last SASA_NDIM of 3)
+//   SASA_RADIUS      the spec's radius r (sum of its stage radii)
+//   SASA_FRAME       width of the zero frame around every window (the
+//                    largest stage radius for a streamed spec, else 0)
 //   SASA_BOUNDARY    0 zero, 1 constant, 2 replicate, 3 periodic
 //   SASA_BVALUE      the constant boundary value (float literal)
 //   SASA_STORE_BF16  1 when every array is bfloat16, else 0 (float32)
@@ -20,26 +24,43 @@
 //   sasa_stage<k>    one __device__ specialisation per stage (locals, then
 //                    output), reading taps through sasa_tap
 //   SASA_STAGE_CALLS the statements running every stage of one iteration,
-//                    sasa_run_stage<k>(destination, env, org, g, lo, hi)
-//                    for each k
+//                    SASA_STAGE(k, tail_k, destination) for each k, where
+//                    tail_k is the sum of the radii of the stages after k
+//                    (kernels/stencil.py::stage_regions at s = 1)
 //
-// Geometry.  Every axis is tiled (the TPU block kept whole columns
-// resident; a 4096-column f32 row is 16 KB and the window needs several
-// arrays, which 227 KB of shared memory cannot hold).  A block owns an
-// interior tile plus a halo of h = s * radius cells on every side of every
-// real axis.  The grid is handled as 3-D: a 2-D spec is (1, R, C).  The
-// window of every input is loaded once with the boundary rule folded into
-// the index arithmetic (zero/constant: a select, replicate: clamp,
-// periodic: wrap), then s fused iterations run in shared memory and the
-// interior is written back.  Cells within h of the window edge go stale
-// (taps outside the window read 0), which is the trapezoid argument of
-// src/repro/kernels/blockops.py, applied to every axis as the reference
-// applies it to rows.
+// Geometry.  Every axis is tiled (a 4096-column f32 row is 16 KB and the
+// window needs several arrays, which 227 KB of shared memory cannot hold
+// whole).  A block owns an interior tile plus a halo of h = s * r cells on
+// every side of every real axis: its window.  A 2-D spec is run as
+// (1, R, C).  Each input window is loaded once, then s fused iterations run
+// in shared memory and the tile is written back.
 //
-// Bound on this card: HBM bytes.  One round reads every input window
-// (tile + 2h per axis) and writes the tile once; the design keeps all s
-// iterations of a round in shared memory, so HBM traffic per iteration
-// falls by ~s at the cost of recomputing the halo trapezoid.
+// Shrinking trapezoid.  Stage k of iteration j (0-based) computes only the
+// tile dilated by e(j, k) = (s - 1 - j) * r + tail_k cells on every real
+// axis: the cells that later stages still read.  Any stage that reads the
+// result of stage k (a later stage of iteration j, or, for the output
+// stage, every stage of iteration j + 1) has a dilation of at most
+// e(j, k) - r_reader, so every tap of a computed cell lands on a computed
+// cell of its producer; the last stage of the last iteration computes the
+// tile.  Since e(j, k) + r_k <= s * r = h, no tap leaves the window, so a
+// tap is the cell's flat index plus a constant offset, with no bounds
+// check.  Cells outside a stage's region keep stale values that no later
+// stage reads.  The values of the computed cells are the ones a full-window
+// update would give (the plain version, blockops.fused_iterations_on_block,
+// computes full windows): same taps, same expression, same order.  This is
+// the closed form of kernels/stencil.py::stage_regions, which the ranker
+// (core/model.py::predict_gpu) sums to price the work.
+//
+// Boundary rule.  Edge blocks load with the rule folded into the index
+// (zero/constant: a select, replicate: clamp, periodic: wrap); after each
+// stage zero/constant cells outside the grid take the boundary value and
+// replicate cells copy the clamped in-grid cell.  That cell lies between
+// the cell and the tile on every axis, hence inside the region (tiles
+// start inside the grid).  Interior blocks, whose whole window lies inside
+// the grid (93-97% of blocks at the paper's sizes), skip all of it: the
+// load is row copies with cp.async (16 bytes where rows are aligned, else
+// 4), with no fold and no per-cell grid test, and no fixup pass or barrier
+// runs after a stage.
 //
 // Streamed halo-index maps (bucketed replicate serving).  Each map holds,
 // per cell, the grid coordinate along its axis that the cell copies from:
@@ -50,20 +71,36 @@
 // block-local target clamp(map - origin, 0, win - 1) (shared-memory
 // atomicMin/atomicMax over the whole window, as the plain version reduces
 // over all window axes).  Then, on every floating input window after the
-// load and on every stage output after the stage, one pass per axis in
-// axis order, with a barrier between axes, copies the cell at `lo` into
-// the cells below it and the cell at `hi` into the cells above it
-// (blockops.streamed_halo_fixup), before the replicate rule.  Clamp maps
+// load and on every stage's region after the stage, one pass per axis in
+// axis order copies the cell at `lo` into the cells below it and the cell
+// at `hi` into the cells above it (blockops.streamed_halo_fixup), before
+// the replicate rule.  A pass that changes no cell of the region is
+// skipped with its barrier.  When [lo, hi] misses the tile on an axis (a
+// tile past the request's real region: lo/hi clamp to the window edge),
+// the output copies a cell the trapezoid never computes; such a block
+// computes the whole window on that axis at every stage, and taps there
+// may leave the window: they read the zero frame of SASA_FRAME cells that
+// surrounds every window, as the plain version's zero padding.  Clamp maps
 // are fixed points of both fixups, so `lo`/`hi` hold for every stage of
 // every fused iteration.  Per-entry maps ride the same blockIdx.z * cells
 // batch stride as the data, so K2 stays bitwise equal to K1 per entry.
 // Wrap-index maps (bucketed periodic serving) are consumed between rounds
 // by the host-side round loop and never reach this kernel.
 //
+// Bound on this card.  One round reads every input window and writes the
+// tile once; keeping s iterations in shared memory divides the HBM traffic
+// per iteration by s, at the cost of the trapezoid's redundant updates
+// (for a T x T tile, sum_k (T + 2k r)^2 / (s T^2) per useful update).  At
+// the paper's sizes the kernel is bound by instructions per cell update,
+// not by bytes: the ranker prices the updates of the regions above.
+//
 // Numerics: every value lives in shared memory as float; each stage
 // computes in float with one rounding per operation (built with
 // -fmad=false and IEEE division) and rounds to the storage type where the
-// stage writes.
+// stage writes.  Tensor cores do not apply: a banded matrix product in
+// TF32, or any reordering of a stage's sums, would change the rounding,
+// and the contract is one float32 rounding per operation, bitwise equal
+// between K1 and K2 and across kernel revisions.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -77,8 +114,7 @@ typedef float sasa_store_t;
 #endif
 
 #define SASA_NBUF (SASA_N_IN + SASA_N_LOCAL + 1)
-#define SASA_THREADS_X 32
-#define SASA_THREADS_Y 8
+#define SASA_THREADS 256
 
 struct SasaGeom {
   int n[3];      // grid extent per axis (a padded leading axis has 1)
@@ -86,6 +122,8 @@ struct SasaGeom {
   int ntile[3];  // tiles per axis
   int win[3];    // window extent per axis: tile + 2 * halo
   int halo[3];   // halo per axis: s * radius on real axes, 0 on padding
+  int st[3];     // shared-memory strides of a framed window (st[2] == 1)
+  int wcells;    // floats of one framed window
   int s;         // fused iterations in this round
   long long cells;  // cells of one grid (batch stride)
 };
@@ -94,6 +132,12 @@ struct SasaPtrs {
   const sasa_store_t* in[SASA_N_IN];
   const int32_t* map[SASA_N_HALO > 0 ? SASA_N_HALO : 1];
   sasa_store_t* out;
+};
+
+// The cells one stage updates: a box of window coordinates.
+struct SasaBox {
+  int lo[3];
+  int ext[3];
 };
 
 __device__ __forceinline__ float sasa_load(const float* p) { return *p; }
@@ -118,23 +162,28 @@ __device__ __forceinline__ float sasa_min(float a, float b) {
   return (a != a || b != b) ? a + b : fminf(a, b);
 }
 
-// Tap at a constant offset from window cell (z, y, x); 0 outside the
-// window (the block-edge zero padding of blockops._block_stage).
+// Tap at a constant offset from the cell at flat shared-memory index c.
+// No bounds check: the trapezoid keeps every tap inside the window, or
+// inside the zero frame (see the head comment).
 template <int OZ, int OY, int OX>
-__device__ __forceinline__ float sasa_tap(const float* b, int z, int y, int x,
+__device__ __forceinline__ float sasa_tap(const float* b, int c,
                                           const SasaGeom& g) {
-  const int qz = z + OZ, qy = y + OY, qx = x + OX;
-  if (qz < 0 || qz >= g.win[0] || qy < 0 || qy >= g.win[1] || qx < 0 ||
-      qx >= g.win[2])
-    return 0.0f;
-  return b[(qz * g.win[1] + qy) * g.win[2] + qx];
+  return b[c + OZ * g.st[0] + OY * g.st[1] + OX];
+}
+
+// Flat shared-memory index of window cell (z, y, x).
+__device__ __forceinline__ int sasa_cell(const SasaGeom& g, int z, int y,
+                                         int x) {
+  return (z + (SASA_NDIM == 3 ? SASA_FRAME : 0)) * g.st[0] +
+         (y + (SASA_NDIM >= 2 ? SASA_FRAME : 0)) * g.st[1] + x + SASA_FRAME;
 }
 
 __device__ __forceinline__ int sasa_fold(int i, int n) {
+  if ((unsigned)i < (unsigned)n) return i;
 #if SASA_BOUNDARY == 3
   return ((i % n) + n) % n;
 #else
-  return i < 0 ? 0 : (i >= n ? n - 1 : i);
+  return i < 0 ? 0 : n - 1;
 #endif
 }
 
@@ -148,33 +197,105 @@ __device__ __forceinline__ int sasa_clamp(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
 }
 
-// Calls f(z, y, x, c, gz, gy, gx) for every window cell this thread owns:
-// window coordinates, flat window index and grid coordinates.
+// Calls f(z, y, x, c) for every cell of an ez x ey x ex box this thread
+// owns, with c = c0 + z * st0 + y * st1 + x kept by increments.  The box
+// is walked as one flat index over the block's threads, so a row narrower
+// than a warp does not leave most of a warp idle.
 template <typename F>
-__device__ __forceinline__ void sasa_for_window(const SasaGeom& g,
-                                                const int* org, F f) {
-  for (int z = 0; z < g.win[0]; ++z)
-    for (int y = threadIdx.y; y < g.win[1]; y += SASA_THREADS_Y)
-      for (int x = threadIdx.x; x < g.win[2]; x += SASA_THREADS_X)
-        f(z, y, x, (z * g.win[1] + y) * g.win[2] + x, org[0] + z,
-          org[1] + y, org[2] + x);
+__device__ __forceinline__ void sasa_walk(int ez, int ey, int ex, int c0,
+                                          int st0, int st1, F f) {
+  const int total = ez * ey * ex;
+  int i = threadIdx.x;
+  if (i >= total) return;
+  const int dx = SASA_THREADS % ex, dq = SASA_THREADS / ex;
+  int x = i % ex;
+  int q = i / ex;
+  int y = q % ey;
+  int z = q / ey;
+  int c = c0 + z * st0 + y * st1 + x;
+  const int dc = dq * st1 + dx, wrap_x = st1 - ex, wrap_y = st0 - ey * st1;
+#pragma unroll 2
+  for (; i < total; i += SASA_THREADS) {
+    f(z, y, x, c);
+    x += dx;
+    y += dq;
+    c += dc;
+    if (x >= ex) {
+      x -= ex;
+      ++y;
+      c += wrap_x;
+    }
+    // With fewer than 3 real axes ez == 1, and y passes ey only past the
+    // end of the box.
+    if (SASA_NDIM == 3) {
+      while (y >= ey) {
+        y -= ey;
+        ++z;
+        c += wrap_y;
+      }
+    }
+  }
+}
+
+// Calls f(z, y, x) for every cell of an ez x ey x ex box this thread owns.
+template <typename F>
+__device__ __forceinline__ void sasa_for_box(int ez, int ey, int ex, F f) {
+  sasa_walk(ez, ey, ex, 0, 0, 0, [&](int z, int y, int x, int) { f(z, y, x); });
+}
+
+// Calls f(z, y, x, c) for every cell of a box of window coordinates:
+// window coordinates and flat shared-memory index.
+template <typename F>
+__device__ __forceinline__ void sasa_for_region(const SasaBox& b,
+                                                const SasaGeom& g, F f) {
+  sasa_walk(b.ext[0], b.ext[1], b.ext[2],
+            sasa_cell(g, b.lo[0], b.lo[1], b.lo[2]), g.st[0], g.st[1],
+            [&](int z, int y, int x, int c) {
+              f(b.lo[0] + z, b.lo[1] + y, b.lo[2] + x, c);
+            });
+}
+
+// The whole window as a box.
+__device__ __forceinline__ SasaBox sasa_window(const SasaGeom& g) {
+  SasaBox b;
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    b.lo[d] = 0;
+    b.ext[d] = g.win[d];
+  }
+  return b;
+}
+
+// The region of a stage with dilation e: the tile dilated by e on every
+// real axis, or the whole window on an axis marked `full`.
+__device__ __forceinline__ SasaBox sasa_region(const SasaGeom& g,
+                                               const bool* full, int e) {
+  SasaBox b;
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    const int ed = d >= 3 - SASA_NDIM ? e : 0;
+    b.lo[d] = full[d] ? 0 : g.halo[d] - ed;
+    b.ext[d] = full[d] ? g.win[d] : g.tile[d] + 2 * ed;
+  }
+  return b;
 }
 
 // The spec's stages, generated from its expression trees.
 template <int K>
-__device__ float sasa_stage(const float* const* env, int z, int y, int x,
+__device__ float sasa_stage(const float* const* env, int c,
                             const SasaGeom& g);
 #include "spec_body.cuh"
 
-// Re-impose the boundary rule on the out-of-grid cells of one stage
-// output (blockops.boundary_fixup).  zero/constant are written inline by
-// the stage loop; replicate copies the clamped in-grid cell, which the
-// window always holds because tiles start inside the grid; periodic keeps
-// its wrapped data.
+// Re-impose the boundary rule on the out-of-grid cells of a box of one
+// stage output (blockops.boundary_fixup), in edge blocks.  zero/constant
+// are written inline by the stage loop; replicate copies the clamped
+// in-grid cell; periodic keeps its wrapped data.  Ends with a barrier.
 __device__ __forceinline__ void sasa_replicate_fixup(float* dst,
+                                                     const SasaBox& box,
                                                      const int* org,
                                                      const SasaGeom& g) {
-  sasa_for_window(g, org, [&](int, int, int, int c, int gz, int gy, int gx) {
+  sasa_for_region(box, g, [&](int z, int y, int x, int c) {
+    const int gz = org[0] + z, gy = org[1] + y, gx = org[2] + x;
     if (!sasa_in_grid(gz, gy, gx, g)) {
       const int tz = sasa_clamp(sasa_clamp(gz, 0, g.n[0] - 1) - org[0], 0,
                                 g.win[0] - 1);
@@ -182,114 +303,156 @@ __device__ __forceinline__ void sasa_replicate_fixup(float* dst,
                                 g.win[1] - 1);
       const int tx = sasa_clamp(sasa_clamp(gx, 0, g.n[2] - 1) - org[2], 0,
                                 g.win[2] - 1);
-      dst[c] = dst[(tz * g.win[1] + ty) * g.win[2] + tx];
+      dst[c] = dst[sasa_cell(g, tz, ty, tx)];
     }
   });
+  __syncthreads();
 }
 
-// One axis pass of the streamed belt over `nb` windows starting at `dst`
-// (`stride` floats apart): window cells below lo[ax] copy the cell at
+// One axis pass of the streamed belt over a box of `nb` windows starting
+// at `dst` (`stride` floats apart): cells below lo[ax] copy the cell at
 // lo[ax] on that axis, cells above hi[ax] the cell at hi[ax].  The cells
-// read are never written in the same pass.  Ends with a barrier.
+// read are never written in the same pass.  A pass that would change no
+// cell of the box is skipped with its barrier (the test is block-uniform).
 template <int AX>
 __device__ __forceinline__ void sasa_streamed_axis(float* dst, int nb,
-                                                   int stride, const int* lo,
+                                                   int stride,
+                                                   const SasaBox& box,
+                                                   const int* lo,
                                                    const int* hi,
-                                                   const int* org,
                                                    const SasaGeom& g) {
   const int l = lo[AX], h = hi[AX];
-  sasa_for_window(g, org, [&](int z, int y, int x, int c, int, int, int) {
+  if (l <= box.lo[AX] && h >= box.lo[AX] + box.ext[AX] - 1) return;
+  sasa_for_region(box, g, [&](int z, int y, int x, int c) {
     const int w = AX == 0 ? z : (AX == 1 ? y : x);
     if (w >= l && w <= h) return;
     const int t = w < l ? l : h;
-    const int src = AX == 0 ? (t * g.win[1] + y) * g.win[2] + x
-                  : AX == 1 ? (z * g.win[1] + t) * g.win[2] + x
-                            : (z * g.win[1] + y) * g.win[2] + t;
+    const int src = c + (t - w) * g.st[AX];
     for (int i = 0; i < nb; ++i) dst[i * stride + c] = dst[i * stride + src];
   });
   __syncthreads();
 }
 
 // The streamed belt on every real axis, in axis order (a no-op without
-// halo-index maps).  Each axis pass ends with a barrier.
+// halo-index maps).
 __device__ __forceinline__ void sasa_streamed_fixup(float* dst, int nb,
                                                     int stride,
+                                                    const SasaBox& box,
                                                     const int* lo,
                                                     const int* hi,
-                                                    const int* org,
                                                     const SasaGeom& g) {
 #if SASA_N_HALO > 0
-  if (SASA_N_HALO >= 3) sasa_streamed_axis<0>(dst, nb, stride, lo, hi, org, g);
-  if (SASA_N_HALO >= 2) sasa_streamed_axis<1>(dst, nb, stride, lo, hi, org, g);
-  sasa_streamed_axis<2>(dst, nb, stride, lo, hi, org, g);
+  if (SASA_N_HALO >= 3) sasa_streamed_axis<0>(dst, nb, stride, box, lo, hi, g);
+  if (SASA_N_HALO >= 2) sasa_streamed_axis<1>(dst, nb, stride, box, lo, hi, g);
+  sasa_streamed_axis<2>(dst, nb, stride, box, lo, hi, g);
 #endif
 }
 
-// One stage over the whole window into dst, then its boundary rule:
-// the streamed belt first (bucket specs), then the bucket-level rule.
-// zero/constant write the boundary value on out-of-grid cells directly
-// (the reference computes them and then masks: the same result).
-template <int K>
+// One stage over its region into dst, then its boundary rule: the
+// streamed belt first (bucket specs), then, in edge blocks, the
+// bucket-level rule.  zero/constant write the boundary value on
+// out-of-grid cells directly (the reference computes them and then
+// masks: the same result).
+template <int K, bool INTERIOR>
 __device__ __forceinline__ void sasa_run_stage(float* dst,
                                                const float* const* env,
+                                               const SasaBox& box,
                                                const int* org,
                                                const SasaGeom& g,
                                                const int* lo,
                                                const int* hi) {
-  sasa_for_window(g, org, [&](int z, int y, int x, int c, int gz, int gy,
-                              int gx) {
+  sasa_for_region(box, g, [&](int z, int y, int x, int c) {
     float v;
-    if (SASA_BOUNDARY <= 1 && !sasa_in_grid(gz, gy, gx, g)) {
+    if (!INTERIOR && SASA_BOUNDARY <= 1 &&
+        !sasa_in_grid(org[0] + z, org[1] + y, org[2] + x, g)) {
       v = (SASA_BOUNDARY == 0) ? 0.0f : SASA_BVALUE;
     } else {
-      v = sasa_round(sasa_stage<K>(env, z, y, x, g), (sasa_store_t*)nullptr);
+      v = sasa_round(sasa_stage<K>(env, c, g), (sasa_store_t*)nullptr);
     }
     dst[c] = v;
   });
   __syncthreads();
-  sasa_streamed_fixup(dst, 1, 0, lo, hi, org, g);
-  if (SASA_BOUNDARY == 2) {
-    sasa_replicate_fixup(dst, org, g);
-    __syncthreads();
-  }
+  sasa_streamed_fixup(dst, 1, 0, box, lo, hi, g);
+  if (!INTERIOR && SASA_BOUNDARY == 2) sasa_replicate_fixup(dst, box, org, g);
 }
 
-__global__ void __launch_bounds__(SASA_THREADS_X * SASA_THREADS_Y)
-sasa_tile_kernel(SasaPtrs p, SasaGeom g) {
-  extern __shared__ float sasa_smem[];
-  const int wcells = g.win[0] * g.win[1] * g.win[2];
-  float* buf[SASA_NBUF];
-#pragma unroll
-  for (int i = 0; i < SASA_NBUF; ++i) buf[i] = sasa_smem + i * wcells;
-  // Per-(entry, tile) belt bounds per kernel axis, after the windows.
-  int* lo = reinterpret_cast<int*>(sasa_smem + SASA_NBUF * wcells);
-  int* hi = lo + 3;
-#if SASA_N_HALO > 0
-  if (threadIdx.x == 0 && threadIdx.y == 0) {
-    for (int d = 0; d < 3; ++d) {
-      lo[d] = INT_MAX;
-      hi[d] = INT_MIN;
-    }
-  }
-  __syncthreads();
+// cp.async copies into shared memory (the plain copy is the host pass's
+// reading of the same code; the kernel is only ever built for sm_90a).
+__device__ __forceinline__ void sasa_cp_async4(float* dst, const float* src) {
+#ifdef __CUDA_ARCH__
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+#else
+  *dst = *src;
 #endif
+}
+__device__ __forceinline__ void sasa_cp_async16(float* dst,
+                                                const float* src) {
+#ifdef __CUDA_ARCH__
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+#else
+  for (int i = 0; i < 4; ++i) dst[i] = src[i];
+#endif
+}
+__device__ __forceinline__ void sasa_cp_async_wait_all() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+#endif
+}
 
-  int t = blockIdx.x;
-  int tc[3];
-  tc[2] = t % g.ntile[2]; t /= g.ntile[2];
-  tc[1] = t % g.ntile[1]; t /= g.ntile[1];
-  tc[0] = t;
-  int org[3];
+// Load every input window.  Interior blocks copy rows; edge blocks fold
+// the boundary rule into the index of every cell.
+template <bool INTERIOR>
+__device__ __forceinline__ void sasa_load_windows(const SasaPtrs& p,
+                                                  const SasaGeom& g,
+                                                  float* const* buf,
+                                                  const int* org,
+                                                  long long base) {
+  const SasaBox win = sasa_window(g);
+#if !SASA_STORE_BF16
+  if (INTERIOR) {
+    // Rows of the window are contiguous in the grid; offsets relative to
+    // the window's first cell fit in 32 bits (checked by the launch).
+    const long long first =
+        base + ((long long)org[0] * g.n[1] + org[1]) * g.n[2] + org[2];
+    const int plane = g.n[1] * g.n[2];
+    bool aligned = SASA_FRAME == 0 && g.n[2] % 4 == 0 && g.win[2] % 4 == 0 &&
+                   first % 4 == 0;
 #pragma unroll
-  for (int d = 0; d < 3; ++d) org[d] = tc[d] * g.tile[d] - g.halo[d];
-  const long long base = (long long)blockIdx.z * g.cells;
-
-  // Load every input window with the boundary rule folded in.
-  sasa_for_window(g, org, [&](int, int, int, int c, int gz, int gy, int gx) {
-    const bool in = sasa_in_grid(gz, gy, gx, g);
+    for (int i = 0; i < SASA_N_IN; ++i)
+      aligned = aligned && ((uintptr_t)(p.in[i] + first) & 15) == 0;
+    if (aligned) {
+      sasa_for_box(g.win[0], g.win[1], g.win[2] / 4, [&](int z, int y, int q) {
+        const int src = z * plane + y * g.n[2] + 4 * q;
+        const int c = sasa_cell(g, z, y, 4 * q);
+#pragma unroll
+        for (int i = 0; i < SASA_N_IN; ++i)
+          sasa_cp_async16(buf[i] + c, p.in[i] + first + src);
+      });
+    } else {
+      sasa_for_region(win, g, [&](int z, int y, int x, int c) {
+        const int src = z * plane + y * g.n[2] + x;
+#pragma unroll
+        for (int i = 0; i < SASA_N_IN; ++i)
+          sasa_cp_async4(buf[i] + c, p.in[i] + first + src);
+      });
+    }
+    sasa_cp_async_wait_all();
+    return;
+  }
+#endif
+  sasa_for_region(win, g, [&](int z, int y, int x, int c) {
+    const int gz = org[0] + z, gy = org[1] + y, gx = org[2] + x;
+    const bool in = INTERIOR || sasa_in_grid(gz, gy, gx, g);
     const long long src =
         ((long long)sasa_fold(gz, g.n[0]) * g.n[1] + sasa_fold(gy, g.n[1])) *
             g.n[2] + sasa_fold(gx, g.n[2]);
+#pragma unroll
     for (int i = 0; i < SASA_N_IN; ++i) {
       float v = sasa_load(p.in[i] + base + src);
       if (SASA_BOUNDARY <= 1 && !in)
@@ -297,6 +460,39 @@ sasa_tile_kernel(SasaPtrs p, SasaGeom g) {
       buf[i][c] = v;
     }
   });
+}
+
+template <bool INTERIOR>
+__device__ __forceinline__ void sasa_tile_body(const SasaPtrs& p,
+                                               const SasaGeom& g,
+                                               float* smem, const int* tc,
+                                               const int* org,
+                                               long long base) {
+  float* buf[SASA_NBUF];
+#pragma unroll
+  for (int i = 0; i < SASA_NBUF; ++i) buf[i] = smem + i * g.wcells;
+  // Per-(entry, tile) belt bounds per kernel axis, after the windows.
+  int* lo = reinterpret_cast<int*>(smem + SASA_NBUF * g.wcells);
+  int* hi = lo + 3;
+  bool full[3] = {false, false, false};
+#if SASA_FRAME > 0
+  // The zero frame (and, harmlessly, every window) starts at 0.
+  for (int i = threadIdx.x; i < SASA_NBUF * g.wcells; i += SASA_THREADS)
+    smem[i] = 0.0f;
+#endif
+#if SASA_N_HALO > 0
+  if (threadIdx.x == 0) {
+    for (int d = 0; d < 3; ++d) {
+      lo[d] = INT_MAX;
+      hi[d] = INT_MIN;
+    }
+  }
+#endif
+#if SASA_FRAME > 0 || SASA_N_HALO > 0
+  __syncthreads();
+#endif
+
+  sasa_load_windows<INTERIOR>(p, g, buf, org, base);
 #if SASA_N_HALO > 0
   // Belt bounds: min and max over the whole window of each map's
   // block-local target (the maps as loaded, with the same fold).
@@ -306,8 +502,8 @@ sasa_tile_kernel(SasaPtrs p, SasaGeom g) {
       tlo[k] = INT_MAX;
       thi[k] = INT_MIN;
     }
-    sasa_for_window(g, org, [&](int, int, int, int, int gz, int gy,
-                                int gx) {
+    sasa_for_region(sasa_window(g), g, [&](int z, int y, int x, int) {
+      const int gz = org[0] + z, gy = org[1] + y, gx = org[2] + x;
       const long long src =
           ((long long)sasa_fold(gz, g.n[0]) * g.n[1] + sasa_fold(gy, g.n[1])) *
               g.n[2] + sasa_fold(gx, g.n[2]);
@@ -329,12 +525,29 @@ sasa_tile_kernel(SasaPtrs p, SasaGeom g) {
   }
 #endif
   __syncthreads();
-  // Streamed belt on every input window, then (replicate) the bucket rule,
-  // as the plain version re-imposes both on entry.
 #if SASA_N_HALO > 0
-  sasa_streamed_fixup(buf[0], SASA_N_IN, wcells, lo, hi, org, g);
-  if (SASA_BOUNDARY == 2) {
-    for (int i = 0; i < SASA_N_IN; ++i) sasa_replicate_fixup(buf[i], org, g);
+  // An axis whose [lo, hi] misses the tile: the output copies a cell
+  // outside the trapezoid, so every stage computes the whole window there.
+#pragma unroll
+  for (int d = 3 - SASA_N_HALO; d < 3; ++d)
+    full[d] = lo[d] > g.halo[d] + g.tile[d] - 1 || hi[d] < g.halo[d];
+  // Streamed belt on every input window, then (edge blocks, replicate) the
+  // bucket rule, as the plain version re-imposes both on entry.
+  sasa_streamed_fixup(buf[0], SASA_N_IN, g.wcells, sasa_window(g), lo, hi, g);
+  if (!INTERIOR && SASA_BOUNDARY == 2) {
+    for (int i = 0; i < SASA_N_IN; ++i)
+      sasa_for_region(sasa_window(g), g, [&](int z, int y, int x, int c) {
+        const int gz = org[0] + z, gy = org[1] + y, gx = org[2] + x;
+        if (!sasa_in_grid(gz, gy, gx, g)) {
+          const int tz = sasa_clamp(sasa_clamp(gz, 0, g.n[0] - 1) - org[0],
+                                    0, g.win[0] - 1);
+          const int ty = sasa_clamp(sasa_clamp(gy, 0, g.n[1] - 1) - org[1],
+                                    0, g.win[1] - 1);
+          const int tx = sasa_clamp(sasa_clamp(gx, 0, g.n[2] - 1) - org[2],
+                                    0, g.win[2] - 1);
+          buf[i][c] = buf[i][sasa_cell(g, tz, ty, tx)];
+        }
+      });
     __syncthreads();
   }
 #endif
@@ -347,26 +560,50 @@ sasa_tile_kernel(SasaPtrs p, SasaGeom g) {
     for (int i = 0; i < SASA_NBUF; ++i) env[i] = buf[i];
     env[SASA_ITER] = cur;
     env[SASA_NBUF - 1] = nxt;
+    const int e_it = (g.s - 1 - it) * SASA_RADIUS;
+#define SASA_STAGE(K, TAIL, DST)                                        \
+  sasa_run_stage<K, INTERIOR>(DST, env, sasa_region(g, full, e_it + (TAIL)), \
+                              org, g, lo, hi);
     SASA_STAGE_CALLS
+#undef SASA_STAGE
     float* tmp = cur;
     cur = nxt;
     nxt = tmp;
   }
 
-  // Write the interior tile.
-  for (int z = 0; z < g.tile[0]; ++z)
-    for (int y = threadIdx.y; y < g.tile[1]; y += SASA_THREADS_Y)
-      for (int x = threadIdx.x; x < g.tile[2]; x += SASA_THREADS_X) {
-        const int gz = tc[0] * g.tile[0] + z;
-        const int gy = tc[1] * g.tile[1] + y;
-        const int gx = tc[2] * g.tile[2] + x;
-        if (gz < g.n[0] && gy < g.n[1] && gx < g.n[2]) {
-          const int c = ((z + g.halo[0]) * g.win[1] + y + g.halo[1]) *
-                            g.win[2] + x + g.halo[2];
-          sasa_put(p.out + base + ((long long)gz * g.n[1] + gy) * g.n[2] + gx,
-                   cur[c]);
-        }
-      }
+  // Write the tile (the last stage's region).
+  sasa_for_box(g.tile[0], g.tile[1], g.tile[2], [&](int z, int y, int x) {
+    const int gz = tc[0] * g.tile[0] + z;
+    const int gy = tc[1] * g.tile[1] + y;
+    const int gx = tc[2] * g.tile[2] + x;
+    if (INTERIOR || (gz < g.n[0] && gy < g.n[1] && gx < g.n[2])) {
+      const int c = sasa_cell(g, z + g.halo[0], y + g.halo[1], x + g.halo[2]);
+      sasa_put(p.out + base + ((long long)gz * g.n[1] + gy) * g.n[2] + gx,
+               cur[c]);
+    }
+  });
+}
+
+__global__ void __launch_bounds__(SASA_THREADS)
+sasa_tile_kernel(SasaPtrs p, SasaGeom g) {
+  extern __shared__ float sasa_smem[];
+  int t = blockIdx.x;
+  int tc[3];
+  tc[2] = t % g.ntile[2]; t /= g.ntile[2];
+  tc[1] = t % g.ntile[1]; t /= g.ntile[1];
+  tc[0] = t;
+  int org[3];
+  bool interior = true;
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    org[d] = tc[d] * g.tile[d] - g.halo[d];
+    interior = interior && org[d] >= 0 && org[d] + g.win[d] <= g.n[d];
+  }
+  const long long base = (long long)blockIdx.z * g.cells;
+  if (interior)
+    sasa_tile_body<true>(p, g, sasa_smem, tc, org, base);
+  else
+    sasa_tile_body<false>(p, g, sasa_smem, tc, org, base);
 }
 
 // Plain C entry point, bound with ctypes.
@@ -391,22 +628,28 @@ extern "C" int sasa_launch(const unsigned long long* ins,
   const int B = geom[0];
   long long cells = 1;
   long long tiles = 1;
+  int framed[3];
   for (int d = 0; d < 3; ++d) {
     g.n[d] = geom[1 + d];
     g.tile[d] = geom[4 + d];
     g.halo[d] = geom[7 + d];
     g.ntile[d] = (g.n[d] + g.tile[d] - 1) / g.tile[d];
     g.win[d] = g.tile[d] + 2 * g.halo[d];
+    framed[d] = g.win[d] + (d >= 3 - SASA_NDIM ? 2 * SASA_FRAME : 0);
     cells *= g.n[d];
     tiles *= g.ntile[d];
   }
+  g.st[2] = 1;
+  g.st[1] = framed[2];
+  g.st[0] = framed[1] * framed[2];
+  g.wcells = framed[0] * framed[1] * framed[2];
   g.s = geom[10];
   g.cells = cells;
   const int smem = geom[11];
   cudaError_t err = cudaFuncSetAttribute(
       sasa_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 block(SASA_THREADS_X, SASA_THREADS_Y, 1);
+  dim3 block(SASA_THREADS, 1, 1);
   dim3 grid((unsigned)tiles, 1, (unsigned)B);
   sasa_tile_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(p, g);
   return (int)cudaGetLastError();

@@ -126,7 +126,7 @@ class _Emitter:
             offs = (0,) * (3 - self.ndim) + tuple(int(o) for o in e.offsets)
             return (
                 f"sasa_tap<{offs[0]}, {offs[1]}, {offs[2]}>"
-                f"(env[{self.buffers[e.name]}], z, y, x, g)"
+                f"(env[{self.buffers[e.name]}], c, g)"
             )
         if isinstance(e, Var):
             return env[e.name]
@@ -158,6 +158,9 @@ class _Emitter:
 
 def generate(spec: StencilSpec) -> tuple[str, str]:
     """``(kernel.cu, spec_body.cuh)`` sources for a lowered spec."""
+    # the tile geometry lives with the kernel's wrapper, which imports this
+    from repro_torch.kernels.stencil import frame_width, stage_tails
+
     check_supported(spec)
     names = float_inputs(spec)
     locals_ = spec.local_stages
@@ -168,20 +171,20 @@ def generate(spec: StencilSpec) -> tuple[str, str]:
         f"// Stages of {spec.name}, generated by kernels/cuda_build.py.",
     ]
     calls = []
+    tails = stage_tails(spec)
     for k, st in enumerate(spec.stages):
         em = _Emitter(spec, buffers)
         result = em.expr(st.expr, {})
         body += [
             "template <>",
             f"__device__ __forceinline__ float sasa_stage<{k}>(",
-            "    const float* const* env, int z, int y, int x,",
-            "    const SasaGeom& g) {",
+            "    const float* const* env, int c, const SasaGeom& g) {",
             *em.lines,
             f"  return {result};",
             "}",
         ]
         dst = "nxt" if st.is_output else f"buf[SASA_N_IN + {k}]"
-        calls.append(f"sasa_run_stage<{k}>({dst}, env, org, g, lo, hi);")
+        calls.append(f"SASA_STAGE({k}, {tails[k]}, {dst})")
     body.append("#define SASA_STAGE_CALLS " + " ".join(calls))
     b = spec.boundary
     tu = "\n".join([
@@ -190,6 +193,9 @@ def generate(spec: StencilSpec) -> tuple[str, str]:
         f"#define SASA_ITER {names.index(spec.iterate_input)}",
         f"#define SASA_N_HALO {len(spec.halo_index_inputs)}",
         f"#define SASA_N_LOCAL {len(locals_)}",
+        f"#define SASA_NDIM {spec.ndim}",
+        f"#define SASA_RADIUS {spec.radius}",
+        f"#define SASA_FRAME {frame_width(spec)}",
         f"#define SASA_BOUNDARY {BOUNDARY_CODES[b.kind]}",
         f"#define SASA_BVALUE {float_literal(b.value)}",
         f"#define SASA_STORE_BF16 {int(spec.dtype == 'bfloat16')}",

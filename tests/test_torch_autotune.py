@@ -135,7 +135,7 @@ def test_batched_runner_paths_agree_bitwise():
         spec, ParallelismConfig("temporal", s=2, tile_rows=8), device="cpu",
     )
     assert (k2.path, k1.path) == ("tile_pipeline", "single_pe")
-    assert k1.tile == k2.tile == (8, 32)
+    assert k1.tile == k2.tile == (8, 64)
     assert k1.backend == k2.backend == "plain"
     pending = k2.dispatch(k2.stage(batch))
     assert k2.ready(pending)

@@ -16,6 +16,7 @@ import torch
 
 from repro_torch.configs import stencils
 from repro_torch.core.ir import lower
+from repro_torch.core.platform import DEFAULT_GPU
 from repro_torch.core.spec import Boundary
 from repro_torch.kernels import ops, pipeline, stencil
 from repro_torch.runtime.bucketing import bucket_plan
@@ -30,31 +31,41 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _check(spec, device, seed):
+def _check(spec, device, seed, tile_rows=(0,)):
+    """Kernel vs plain at s up to 8 on the default tile and on each row
+    extent of ``tile_rows`` whose block fits in shared memory."""
     rng = np.random.default_rng(seed)
     arrays = {
         n: rng.standard_normal((2,) + tuple(spec.shape)).astype(np.float32)
         for n in spec.inputs
     }
     t = ops.to_device(spec, arrays, device)
-    for s in (1, 2, 4):
-        both = pipeline.stencil_cuda_batched(spec, t, s)
-        for b in range(2):
-            one = {n: a[b] for n, a in t.items()}
-            got = stencil.stencil_cuda(spec, one, s)
-            want = stencil.stencil_torch_tiled(spec, one, s)
-            scale = max(1.0, float(want.float().abs().max()))
-            err = float((got.float() - want.float()).abs().max())
-            assert err <= RTOL[spec.dtype] * scale, (spec.name, s, err)
-            assert torch.equal(both[b], got), (spec.name, s, b)
+    for rows in tile_rows:
+        tile = stencil.default_tile(spec.ndim, rows)
+        for s in (1, 2, 4, 8):
+            if stencil.smem_bytes_estimate(spec, s, tile) > DEFAULT_GPU.smem_per_block:
+                continue
+            both = pipeline.stencil_cuda_batched(spec, t, s, tile)
+            for b in range(2):
+                one = {n: a[b] for n, a in t.items()}
+                got = stencil.stencil_cuda(spec, one, s, tile)
+                want = stencil.stencil_torch_tiled(spec, one, s, tile)
+                scale = max(1.0, float(want.float().abs().max()))
+                err = float((got.float() - want.float()).abs().max())
+                assert err <= RTOL[spec.dtype] * scale, (spec.name, s, tile, err)
+                assert torch.equal(both[b], got), (spec.name, s, tile, b)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", list(stencils.BENCHMARKS))
 def test_kernel_matches_plain_on_card(cuda_device, name):
-    shape = (37, 6, 41) if name in stencils.BENCHMARKS_3D else (70, 45)
-    _check(lower(stencils.get(name, shape=shape, iterations=4)).spec,
-           cuda_device, 11)
+    """Edge blocks only (the small shape), then interior blocks at s = 8
+    too, on the default tile and a taller one."""
+    three = name in stencils.BENCHMARKS_3D
+    for shape in ([(37, 6, 41), (37, 40, 41)] if three
+                  else [(70, 45), (200, 150)]):
+        _check(lower(stencils.get(name, shape=shape, iterations=4)).spec,
+               cuda_device, 11, tile_rows=(0, 16 if three else 64))
 
 
 @pytest.mark.gpu
@@ -95,12 +106,13 @@ def test_streamed_kernels_match_plain_on_card(cuda_device, kind):
     mspec = plan.mspec
     t = ops.to_device(mspec, {n: np.stack([x[n] for x in entries])
                               for n in mspec.inputs}, cuda_device)
-    for s in (1, 2, 4):
-        both = pipeline.stencil_cuda_batched(mspec, t, s)
-        for b in range(3):
-            one = {n: a[b] for n, a in t.items()}
-            got = stencil.stencil_cuda(mspec, one, s)
-            want = stencil.stencil_torch_tiled(mspec, one, s)
-            scale = max(1.0, float(want.abs().max()))
-            assert float((got - want).abs().max()) <= RTOL["float32"] * scale
-            assert torch.equal(both[b], got), (kind, s, b)
+    for tile in (None, (16, 16)):     # (16, 16): tiles wholly in padding
+        for s in (1, 2, 4, 8):
+            both = pipeline.stencil_cuda_batched(mspec, t, s, tile)
+            for b in range(3):
+                one = {n: a[b] for n, a in t.items()}
+                got = stencil.stencil_cuda(mspec, one, s, tile)
+                want = stencil.stencil_torch_tiled(mspec, one, s, tile)
+                scale = max(1.0, float(want.abs().max()))
+                assert float((got - want).abs().max()) <= RTOL["float32"] * scale
+                assert torch.equal(both[b], got), (kind, s, tile, b)

@@ -262,26 +262,29 @@ def test_wrap_round_fixup_matches_reference():
 def test_plan_blocks_and_smem_estimate():
     spec = lower(_port(ref_stencils.get("hotspot", shape=(9720, 1024)))).spec
     g = stencil.plan_blocks(spec, 4)
-    assert g["tile"] == (32, 32) and g["h"] == 4
-    assert g["window"] == (40, 40)
-    assert g["n_tiles"] == (304, 32) and g["tiles"] == 304 * 32
+    assert g["tile"] == (32, 64) and g["h"] == 4
+    assert g["window"] == (40, 72) and g["frame"] == 0
+    assert g["n_tiles"] == (304, 16) and g["tiles"] == 304 * 16
     # two inputs + the next iterate, as float
-    assert stencil.smem_bytes_estimate(spec, 4) == 3 * 40 * 40 * 4
+    assert stencil.smem_bytes_estimate(spec, 4) == 3 * 40 * 72 * 4
+    assert stencil.plan_blocks(spec, 4, (64, 64))["window"] == (72, 72)
     small = stencil.plan_blocks(lower(_port(
         ref_stencils.get("jacobi2d", shape=(7, 5)))).spec, 2)
     assert small["tile"] == (7, 5)       # clipped to the grid
     # a replicate bucket spec stages the data and the mask as float
-    # windows (+ the next iterate); its two int32 halo maps are read from
-    # global memory, and only the per-axis belt bounds sit in shared memory
+    # windows (+ the next iterate), each inside a zero frame of the largest
+    # stage radius; its two int32 halo maps are read from global memory,
+    # and only the per-axis belt bounds sit in shared memory
     jac = lower(_port(ref_stencils.get("jacobi2d", shape=(60, 60)))).spec
     rep = bucket_plan(dataclasses.replace(jac, boundary=Boundary("replicate")),
                       (64, 64)).mspec
     assert rep.num_inputs == 4 and stencil.plan_blocks(rep, 4)["n_buffers"] == 3
-    assert stencil.smem_bytes_estimate(rep, 4) == 3 * 40 * 40 * 4 + 6 * 4
+    assert stencil.plan_blocks(rep, 4)["frame"] == 1
+    assert stencil.smem_bytes_estimate(rep, 4) == 3 * 42 * 74 * 4 + 6 * 4
     wrap = bucket_plan(dataclasses.replace(jac, boundary=Boundary("periodic")),
                        (64, 64), wrap_rounds=2).mspec
-    assert stencil.smem_bytes_estimate(wrap, 2) == \
-        stencil.smem_bytes_estimate(jac, 2)
+    assert stencil.smem_bytes_estimate(wrap, 2, (32, 32)) == \
+        stencil.smem_bytes_estimate(jac, 2, (32, 32))
 
 
 def test_cuda_kernel_refuses_what_it_cannot_run():
@@ -326,3 +329,224 @@ def test_generated_source_is_exact_and_structural():
     other = lower(_port(ref_stencils.get("hotspot", shape=(9720, 1024),
                                          iterations=9))).spec
     assert cuda_build.kernel_key(spec) == cuda_build.kernel_key(other)
+    # a tap is the cell's flat index plus a constant offset; the stage
+    # call carries its tail of the trapezoid (stage_regions at s = 1)
+    assert "sasa_tap<0, -1, 0>(env[1], c, g)" in body
+    assert "#define SASA_STAGE_CALLS SASA_STAGE(0, 0, nxt)" in body
+    assert "#define SASA_RADIUS 1\n" in tu and "#define SASA_FRAME 0\n" in tu
+    blur = lower(_port(ref_stencils.get("blur_jacobi2d", shape=(64, 64)))).spec
+    assert [r.dilation for r in stencil.stage_regions(blur, 1)] == [1, 0]
+    assert "SASA_STAGE(0, 1, buf[SASA_N_IN + 0]) SASA_STAGE(1, 0, nxt)" in \
+        cuda_build.generate(blur)[1]
+    # and the template's tap has no bounds check
+    src = (cuda_build.CSRC / "stencil_tile.cuh").read_text()
+    tap = src[src.index("sasa_tap(const float* b"):]
+    tap = tap[:tap.index("}")]
+    assert "return b[c + OZ * g.st[0] + OY * g.st[1] + OX];" in tap
+    assert "if" not in tap and "<" not in tap.split(")", 1)[1]
+
+
+# --------------------------------------------------------------------------
+# The shrinking trapezoid (what the kernel updates per stage)
+# --------------------------------------------------------------------------
+
+
+def _region_mask(reg, full, window, tiles_shape):
+    """True on the cells of ``reg``; ``full`` (``tiles_shape + (nd,)``,
+    bool) marks axes a block updates whole."""
+    mask = None
+    nd = len(window)
+    for d, w in enumerate(window):
+        idx = torch.arange(w).view([1] * len(tiles_shape) + [-1 if e == d else 1
+                                                           for e in range(nd)])
+        m = (idx >= reg.lo[d]) & (idx < reg.lo[d] + reg.extent[d])
+        m = m | full[(Ellipsis, d) + (None,) * nd]
+        mask = m if mask is None else mask & m
+    return mask
+
+
+def _trapezoid_block(spec, blocks, s, origin, grid_shape, boundary=None,
+                     compute_dtype=None, *, tile):
+    """``blockops.fused_iterations_on_block`` with every stage confined to
+    its region of ``stencil.stage_regions``: each cell outside the region
+    is NaN from the moment the stage writes, so a needed cell that reads
+    one is NaN too.  Blocks of a streamed spec whose belt [lo, hi] misses
+    the tile on an axis update that axis whole (the kernel's rule)."""
+    nd = spec.ndim
+    env = dict(blocks)
+    if compute_dtype is not None:
+        env = {n: a.to(compute_dtype) if a.is_floating_point() else a
+               for n, a in env.items()}
+
+    def fixup(a):
+        return blockops.boundary_fixup(a, origin, grid_shape, spec.boundary)
+
+    first = env[spec.iterate_input]
+    window = tuple(first.shape[-nd:])
+    lead = tuple(first.shape[:-nd])
+    g = stencil.plan_blocks(spec, s, tile)
+    full = torch.zeros(lead + (nd,), dtype=torch.bool)
+    streamed = bool(spec.halo_index_inputs)
+    if streamed:
+        src = dict(env)
+        axes = tuple(range(first.dim() - nd, first.dim()))
+        for d, name in enumerate(spec.halo_index_inputs):
+            org = blockops._origin_axis(origin, nd, d)
+            tgt = (src[name].long() - org).clamp(0, window[d] - 1)
+            lo = tgt.amin(dim=axes)
+            hi = tgt.amax(dim=axes)
+            full[..., d] = (lo > g["h"] + g["tile"][d] - 1) | (hi < g["h"])
+        env = {n: blockops.streamed_halo_fixup(a, src, spec, origin)
+               for n, a in env.items()}
+    env = {n: fixup(a) for n, a in env.items()}
+    regions = iter(stencil.stage_regions(spec, s, tile))
+    cur = env[spec.iterate_input]
+    for _ in range(s):
+        env[spec.iterate_input] = cur
+        stage_env = dict(env)
+        for stage in spec.stages:
+            mask = _region_mask(next(regions), full, window, lead)
+            out = blockops._block_stage(stage, stage_env, nd, compute_dtype)
+            out = torch.where(mask, out, float("nan"))
+            if streamed:
+                out = blockops.streamed_halo_fixup(out, stage_env, spec, origin)
+            out = torch.where(mask, fixup(out), float("nan"))
+            stage_env[stage.name] = out
+        cur = stage_env[spec.output_name]
+    return cur
+
+
+def _trapezoid_round(spec, arrays, s, tile, monkeypatch):
+    """``stencil.tiled_round`` walking the trapezoid instead of whole
+    windows."""
+    with monkeypatch.context() as m:
+        m.setattr(stencil, "fused_iterations_on_block",
+                  lambda *a, **k: _trapezoid_block(*a, tile=tile, **k))
+        return stencil.tiled_round(spec, arrays, s, tile)
+
+
+@pytest.mark.parametrize("kind", ["zero", "constant", "replicate", "periodic"])
+@pytest.mark.parametrize("name", list(ref_stencils.BENCHMARKS))
+def test_trapezoid_equals_full_window_bitwise(name, kind, monkeypatch):
+    """Confining every stage to its region changes no output cell: the
+    trapezoid's regions hold every cell later stages read, at s up to 8,
+    on 32- and 64-row tiles with edge and interior blocks."""
+    three = name in ref_stencils.BENCHMARKS_3D
+    shape = (21, 13, 40) if three else (100, 77)
+    spec = dataclasses.replace(
+        lower(_port(ref_stencils.get(name, shape=shape))).spec,
+        boundary=Boundary(kind, 1.5 if kind == "constant" else 0.0),
+    )
+    rng = np.random.default_rng(31)
+    arrays = {n: torch.from_numpy(rng.standard_normal((1,) + shape)
+                                  .astype(np.float32)) for n in spec.inputs}
+    for rows in (32, 64):
+        tile = (rows // 4, 8, 32) if three else (rows, rows)
+        for s in (1, 2, 4, 8):
+            want = stencil.tiled_round(spec, arrays, s, tile)
+            got = _trapezoid_round(spec, arrays, s, tile, monkeypatch)
+            assert torch.equal(got, want), (name, kind, tile, s)
+
+
+@pytest.mark.parametrize("kind", ["replicate", "periodic"])
+@pytest.mark.parametrize("name", ["jacobi2d", "sobel2d_replicate"])
+def test_trapezoid_equals_full_window_on_bucket_specs(name, kind, monkeypatch):
+    """The bucket specs of chip_smoke.py's ``small`` phase (grid + 24 per
+    axis), with a full entry, a smaller one and the all-zero filler: every
+    cell of the bucket grid, padding included, bitwise.  The 16-row tile
+    lies wholly in the padding past the smaller entry's real region, where
+    the belt copies cells outside the trapezoid."""
+    shape = (100, 77)
+    spec = dataclasses.replace(
+        lower(_port(ref_stencils.get(name, shape=shape, iterations=4))).spec,
+        boundary=Boundary(kind),
+    )
+    plan = bucket_plan(spec, tuple(n + 24 for n in shape), iterations=4,
+                       wrap_rounds=2 if kind == "periodic" else None)
+    rng = np.random.default_rng(32)
+    entries = []
+    for cut in (0, 30):
+        sub = tuple(n - cut for n in shape)
+        e = {n: plan.place_entry(rng.standard_normal(sub).astype(np.float32))
+             for n in spec.inputs}
+        e.update(plan.service_entry(sub))
+        entries.append(e)
+    e = {n: plan.filler_entry(n) for n in spec.inputs}
+    e.update(plan.service_filler())
+    entries.append(e)
+    mspec = plan.mspec
+    arrays = {n: torch.from_numpy(np.stack([x[n] for x in entries]))
+              for n in mspec.inputs}
+    for tile in ((32, 32), (16, 16)):
+        for s in ((1, 2) if kind == "periodic" else (1, 2, 4)):
+            want = stencil.tiled_round(mspec, arrays, s, tile)
+            got = _trapezoid_round(mspec, arrays, s, tile, monkeypatch)
+            assert torch.equal(got, want), (name, kind, tile, s)
+
+
+def test_stage_regions_shrink_to_the_tile():
+    """e(j, k) + r_k <= h: no tap leaves the window; the last region is
+    the tile; each stage's readers reach only into its region."""
+    for name in ref_stencils.BENCHMARKS:
+        spec = lower(_port(ref_stencils.get(name))).spec
+        radii = [st.radius for st in spec.stages]
+        for s in (1, 3, 8):
+            regs = stencil.stage_regions(spec, s, (32,) * spec.ndim)
+            h = s * spec.radius
+            assert len(regs) == s * len(radii)
+            for reg in regs:
+                assert reg.dilation + radii[reg.stage] <= h
+                assert all(lo == h - reg.dilation for lo in reg.lo)
+            assert regs[-1].dilation == 0
+            assert regs[-1].extent == tuple(min(32, n) for n in spec.shape)
+            for a, b in zip(regs, regs[1:]):
+                assert a.dilation >= b.dilation + radii[b.stage]
+
+
+def test_predicted_updates_match_the_closed_form(monkeypatch):
+    """predict_gpu counts the cells of every stage's region: JACOBI2D
+    4096x4096, s=16, one round, a 32x32 tile is 16384 x sum_k (32+2k)^2;
+    the default 32x64 tile is 8192 x sum_k (32+2k)(64+2k)."""
+    from repro_torch.core.model import (
+        ParallelismConfig, predict_gpu, resident_blocks,
+    )
+    from repro_torch.core.platform import DEFAULT_GPU
+
+    spec = lower(_port(ref_stencils.jacobi2d(shape=(4096, 4096),
+                                             iterations=16))).spec
+    cfg = ParallelismConfig("temporal", s=16)
+    p = predict_gpu(spec, cfg, DEFAULT_GPU)
+    assert p.cell_updates == 8192 * sum((32 + 2 * k) * (64 + 2 * k)
+                                        for k in range(16))
+    # 49 KB of shared memory: 4 blocks per SM, the full rate
+    assert resident_blocks(int(p.smem_bytes), DEFAULT_GPU) == 4
+    assert p.compute_term == p.cell_updates * DEFAULT_GPU.cell_update_s
+    assert p.latency == p.compute_term + p.memory_term + DEFAULT_GPU.launch_s
+    monkeypatch.setitem(stencil.DEFAULT_TILES, 2, (32, 32))
+    p = predict_gpu(spec, cfg, DEFAULT_GPU)
+    assert p.cell_updates == 16384 * sum((32 + 2 * k) ** 2 for k in range(16))
+    assert p.rounds == 1
+    # a ragged last round has its own trapezoid: 20 iterations at s=16
+    p20 = predict_gpu(spec, cfg, DEFAULT_GPU, iterations=20)
+    assert p20.cell_updates == p.cell_updates + 16384 * sum(
+        (32 + 2 * k) ** 2 for k in range(4))
+
+
+def test_resident_blocks_price_occupancy():
+    """Blocks per SM from shared memory (1 KB each for the system) or from
+    2048 threads; below full_rate_blocks an update costs more."""
+    from repro_torch.core.model import (
+        ParallelismConfig, predict_gpu, resident_blocks,
+    )
+    from repro_torch.core.platform import DEFAULT_GPU
+
+    assert resident_blocks(23040, DEFAULT_GPU) == 8       # thread bound
+    assert resident_blocks(73728, DEFAULT_GPU) == 3
+    assert resident_blocks(122880, DEFAULT_GPU) == 1
+    spec = lower(_port(ref_stencils.jacobi2d(shape=(4096, 4096),
+                                             iterations=16))).spec
+    tall = predict_gpu(spec, ParallelismConfig("temporal", s=16, tile_rows=128),
+                       DEFAULT_GPU)
+    assert resident_blocks(int(tall.smem_bytes), DEFAULT_GPU) == 1
+    assert tall.compute_term == pytest.approx(
+        tall.cell_updates * DEFAULT_GPU.cell_update_s * 3 ** 0.5)
