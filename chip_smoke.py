@@ -6,7 +6,7 @@ Run from the root of a checkout, on a machine with one CUDA card::
 
 It builds the CUDA tile kernels from ``src/repro_torch/kernels/csrc`` into
 ``build/repro_torch_kernels/`` (one ``nvcc`` per kernel, all at once), then
-runs seven phases, each printing JSON lines:
+runs ten phases, each printing JSON lines:
 
   1. device    the card's name and power limit (``nvidia-smi``), versions;
   2. build     kernels built and seconds;
@@ -45,7 +45,32 @@ runs seven phases, each printing JSON lines:
                the port's single-shot ``build_bucket_runner`` and within
                tolerance of the plain version of the unpadded spec; one
                line per mode gives launches, flush seconds, grids per
-               second and the padded-cell share.
+               second and the padded-cell share;
+  8. distribute the five SASA parallelisms of ``core/distribute.py`` on a
+               pool of 4 logical devices that are all this one card
+               (``[cuda] * 4``; every line says ``logical_devices: 4,
+               physical_devices: 1``): JACOBI2D, HOTSPOT and
+               SOBEL2D-REPLICATE at 9720x1024 and HEAT3D-PERIODIC at
+               9720x32x32, 16 iterations, each as spatial_s(k=4),
+               spatial_r(k=4), hybrid_s(k=4,s=4), hybrid_r(k=4,s=4) and
+               temporal(s=4), held against the plain oracle
+               (``kernels/ref.py``) on the card within 2e-4 x max|out|, with
+               ms from CUDA events (median of 3 runs; the temporal
+               pipeline's one checked run), halo bytes moved and, for
+               the row partitions, the model's prediction for 4 H100s
+               (its host term and launches too); then a batch of 2
+               bitwise against single-grid runs.  The shard path runs no CUDA kernel (as the
+               reference's reaches no Pallas kernel): its launch counts
+               must read 0;
+  9. degraded  hybrid_s(k=4,s=8) on the real pool (this one card): warns,
+               reports ``degraded`` on 1 device, runs K1 at s=8 bitwise
+               equal to temporal(s=8) K1 on the same tile; under
+               ``strict`` it raises;
+ 10. rank_pool ``autotune`` and ``soda_baseline`` ranked for a pool of 4
+               cards (``build=False``), JACOBI2D 9720x1024: the top five
+               configurations of each and the best shard design, with
+               their predictions; then ``autotune`` built on the pool
+               ``[cuda] * 4``, whose design must run the tile kernel.
 
 Then one JSON line lists every kernel with its launches, error and times,
 and the last line is ``{"ok": true, "device": {...}}``.  Any failure
@@ -86,6 +111,13 @@ input float: in_1({r}, {c})
 output float: out_1(0,0) = (in_1(0,1) + in_1(1,0) + in_1(0,0)
     + in_1(0,-1) + in_1(-1,0)) / 5
 """
+DIST_CASES = [  # (stock kernel, shape) of phase distribute; 16 iterations
+    ("jacobi2d", (9720, 1024)),
+    ("hotspot", (9720, 1024)),
+    ("sobel2d_replicate", (9720, 1024)),
+    ("heat3d_periodic", (9720, 32, 32)),   # 9720 = 4 x 2430: periodic fits
+]
+DIST_POOL = 4
 SERVE_MODES = ["zero", "constant 25.0", "replicate", "periodic"]
 SERVE_LADDER = ((10240,), (1024, 1088))
 SERVE_SHAPES, SERVE_REPEATS = 5, 2
@@ -114,6 +146,7 @@ def main() -> int:
     sys.path.insert(0, str(root / "src"))
 
     import dataclasses
+    import warnings
 
     import numpy as np
     import torch
@@ -124,12 +157,13 @@ def main() -> int:
 
     from repro_torch.configs import stencils
     from repro_torch.core import dsl
-    from repro_torch.core.autotune import autotune
+    from repro_torch.core import distribute, model
+    from repro_torch.core.autotune import autotune, soda_baseline
     from repro_torch.core.ir import lower
     from repro_torch.core.model import ParallelismConfig, resident_blocks
     from repro_torch.core.platform import gpu_platform_for
     from repro_torch.core.spec import Boundary
-    from repro_torch.kernels import cuda_build, ops, pipeline, stencil
+    from repro_torch.kernels import cuda_build, ops, pipeline, ref, stencil
     from repro_torch.runtime import (
         DesignCache,
         ShapeBucketer,
@@ -137,7 +171,10 @@ def main() -> int:
         build_bucket_runner,
         padded_request_shape,
     )
-    from repro_torch.runtime.batching import build_batched_runner
+    from repro_torch.runtime.batching import (
+        DegradedDesignWarning,
+        build_batched_runner,
+    )
     from repro_torch.serve import StencilRequest, StencilServer
 
     dev = torch.device("cuda")
@@ -577,6 +614,147 @@ def main() -> int:
              device_busy_share=batches * batch_ms / 1e3 / flush_s,
              padded_cell_share=1.0 - real / dispatched,
              bitwise_vs_single_shot=bitwise, max_rel_err=err, tol=TOL["float32"])
+
+    # ---- 8. distribute: the five parallelisms on 4 logical devices -------
+    pool = [dev] * DIST_POOL
+    on_pool = dict(logical_devices=len(pool),
+                   physical_devices=len(set(pool)))
+    gpu_pool = gpu.with_gpus(DIST_POOL)
+    dist_cfgs = [
+        ParallelismConfig("spatial_s", k=4),
+        ParallelismConfig("spatial_r", k=4),
+        ParallelismConfig("hybrid_s", k=4, s=4),
+        ParallelismConfig("hybrid_r", k=4, s=4),
+        ParallelismConfig("temporal", s=4),
+    ]
+
+    def kernel_launches():
+        return stencil.stencil_cuda.launches + pipeline.stencil_cuda_batched.launches
+
+    for key, shape in DIST_CASES:
+        spec = lower(stencils.get(key, shape=shape, iterations=ITERATIONS)).spec
+        arrays = inputs(spec)
+        want = ref.stencil_iterations_ref(
+            spec, ops.to_device(spec, arrays, dev), ITERATIONS).cpu().numpy()
+        scale = max(1.0, float(np.abs(want).max()))
+        for cfg in dist_cfgs:
+            run = distribute.build_runner(spec, cfg, iterations=ITERATIONS,
+                                          devices=pool)
+            staged = run.stage(arrays)
+            torch.cuda.synchronize()
+            stencil.stencil_cuda.launches = 0
+            pipeline.stencil_cuda_batched.launches = 0
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            pending = run.dispatch(staged)
+            b.record()
+            out = run.finalize(pending)
+            launched = kernel_launches()
+            halo_bytes = run.halo_bytes
+            err = float(np.abs(out - want).max()) / scale
+            check(out.shape == tuple(shape) and bool(np.isfinite(out).all()),
+                  f"distribute {key} {cfg.variant}: shape or non-finite")
+            check(err <= TOL["float32"],
+                  f"distribute {key} {cfg.variant}: vs oracle {err}")
+            check(launched == 0, f"distribute {key}: the shard path launched "
+                  f"{launched} tile kernels")
+            # the temporal pipeline takes seconds (host-bound, see PERF.md):
+            # its one checked run is its sample
+            ms = a.elapsed_time(b) if cfg.variant == "temporal" else timed(
+                lambda: run.dispatch(staged), reps=3, warm=1)
+            # the ranker prices a temporal design as the tile kernel that
+            # runs it, not this pipeline; a row partition as it runs here
+            # (its host term is the same on one card as on four)
+            pred = (None if cfg.variant == "temporal" else
+                    model.predict_gpu(spec, cfg, gpu_pool, ITERATIONS))
+            emit(phase="distribute", spec=spec.name, shape=list(shape),
+                 iterations=ITERATIONS, variant=cfg.variant, k=cfg.k, s=cfg.s,
+                 **on_pool, path=run.path, backend=run.backend,
+                 kernel_launches=launched, ms=ms, halo_bytes=halo_bytes,
+                 max_rel_err=err, tol=TOL["float32"],
+                 predicted_4gpu_ms=pred and pred.latency * 1e3,
+                 predicted_host_ms=pred and pred.host_term * 1e3,
+                 predicted_launches=pred and pred.launches)
+    spec = lower(stencils.jacobi2d(shape=(9720, 1024), iterations=ITERATIONS)).spec
+    cfg = ParallelismConfig("hybrid_s", k=4, s=4)
+    batch = inputs(spec, batch=2)
+    both = distribute.build_runner(spec, cfg, iterations=ITERATIONS,
+                                   devices=pool, batched=True)(batch)
+    single = distribute.build_runner(spec, cfg, iterations=ITERATIONS,
+                                     devices=pool)
+    dist_bitwise = all(np.array_equal(both[b], single({"in_1": batch["in_1"][b]}))
+                       for b in range(2))
+    check(dist_bitwise, "distribute: batched entries differ from single grids")
+    emit(phase="distribute_batched", spec=spec.name, batch=2,
+         variant=cfg.variant, k=cfg.k, s=cfg.s, **on_pool,
+         bitwise_vs_single_grid=dist_bitwise)
+
+    # ---- 9. degraded: a k=4 design on the real pool of one card ----------
+    x = inputs(spec)
+    cfg = ParallelismConfig("hybrid_s", k=4, s=8)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        run = build_batched_runner(spec, cfg, iterations=ITERATIONS)
+    warned = any(issubclass(w.category, DegradedDesignWarning) for w in caught)
+    stencil.stencil_cuda.launches = 0
+    pipeline.stencil_cuda_batched.launches = 0
+    out = run({"in_1": x["in_1"][None]})[0]
+    degraded_launches = stencil.stencil_cuda.launches
+    k1 = ops.stencil_run(spec, x, ITERATIONS, s=8, tile=run.tile,
+                         backend="cuda").cpu().numpy()
+    try:
+        build_batched_runner(spec, cfg, iterations=ITERATIONS, strict=True)
+        strict_raised = False
+    except ValueError:
+        strict_raised = True
+    check(warned and run.degraded and run.n_devices == 1,
+          f"degraded: warned={warned} degraded={run.degraded} "
+          f"n_devices={run.n_devices}")
+    check(degraded_launches > 0, "degraded: K1 never launched")
+    check(bool(np.array_equal(out, k1)), "degraded: differs from temporal(s=8) K1")
+    check(strict_raised, "degraded: strict=True did not raise")
+    emit(phase="degraded", spec=spec.name, variant=cfg.variant, k=cfg.k,
+         s=cfg.s, pool=[str(d) for d in run.devices],
+         devices_requested=run.devices_requested, n_devices=run.n_devices,
+         path=run.path, tile=list(run.tile), warned=warned,
+         stencil_cuda_launches=degraded_launches,
+         bitwise_vs_temporal_k1=True, strict_raised=strict_raised)
+
+    # ---- 10. rank_pool: SASA's design space against SODA's ----------------
+    text = dsl.format_spec(stencils.jacobi2d(shape=(9720, 1024),
+                                             iterations=ITERATIONS))
+    def described(i, p):
+        return dict(rank=i, variant=p.config.variant, k=p.config.k,
+                    s=p.config.s, tile_rows=p.config.tile_rows,
+                    buffer_depth=p.config.buffer_depth,
+                    predicted_ms=p.latency * 1e3,
+                    host_ms=p.host_term * 1e3,
+                    collective_ms=p.collective_term * 1e3)
+
+    for name, tune in (("autotune", autotune), ("soda_baseline", soda_baseline)):
+        td = tune(text, devices=pool, build=False)
+        shard = next(((i, p) for i, p in enumerate(td.ranking)
+                      if p.config.k > 1), None)
+        emit(phase="rank_pool", ranker=name, spec=td.spec.name,
+             shape=[9720, 1024], iterations=ITERATIONS, **on_pool,
+             candidates=len(td.ranking),
+             top=[described(i, p) for i, p in enumerate(td.ranking[:5])],
+             best_shard=shard and described(*shard))
+    # the chosen design, built on the pool, runs the tile kernel
+    design = autotune(text, devices=pool)
+    stencil.stencil_cuda.launches = 0
+    pipeline.stencil_cuda_batched.launches = 0
+    out = design.runner(inputs(design.spec))
+    pool_launches = kernel_launches()
+    run = design.runner.batched
+    check(run.path in ("single_pe", "tile_pipeline") and pool_launches > 0,
+          f"rank_pool: the design built on the pool ran {run.path} with "
+          f"{pool_launches} tile-kernel launches")
+    check(bool(np.isfinite(out).all()), "rank_pool: non-finite output")
+    emit(phase="rank_pool_build", variant=design.config.variant,
+         k=design.config.k, s=design.config.s, **on_pool, path=run.path,
+         n_devices=run.n_devices, degraded=run.degraded,
+         tile_kernel_launches=pool_launches)
 
     kernels = [
         dict(name="stencil_cuda", route="cuda",

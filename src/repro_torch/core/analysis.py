@@ -781,16 +781,18 @@ def candidate_verdict(
     explicit device list to ``build_runner`` (which then uses *all* of
     them) give its length as ``k_override``.  With ``batched`` (the
     :func:`repro_torch.runtime.batching.build_batched_runner` path) a
-    candidate that degrades to a single device bypasses ``build_runner``
-    entirely — the vmapped single-PE path has no shard guards.
+    candidate that runs on a single device -- one degraded to it, or a
+    temporal one, which that path runs as fused rounds of the tile kernel
+    on any pool -- bypasses ``build_runner`` entirely: the single-PE path
+    has no shard guards.
     """
     it = spec.iterations if iterations is None else int(iterations)
     if k_override is not None:
         k = max(int(k_override), 1)
     else:
         k = min(max(cfg.devices_needed, 1), max(int(n_devices), 1))
-    if batched and k <= 1:
-        return CandidateVerdict(cfg, True, k=k)
+    if batched and (k <= 1 or cfg.variant == "temporal"):
+        return CandidateVerdict(cfg, True, k=1)
     if spec.wrap_index_inputs:
         return CandidateVerdict(
             cfg, False, k=k, code="SASA304",
@@ -921,7 +923,7 @@ def verify(
         if not isinstance(platform, FPGAPlatform):
             pool = (
                 int(n_devices) if n_devices is not None
-                else int(getattr(platform, "num_chips", 1))
+                else int(getattr(platform, "num_gpus", 1))
             )
             verdicts = preflight(
                 spec, [p.config for p in ranking], pool,

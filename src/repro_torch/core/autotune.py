@@ -1,20 +1,22 @@
-"""SASA end-to-end automation flow (paper Sec. 4.3), one-GPU edition.
+"""SASA end-to-end automation flow (paper Sec. 4.3) on a pool of GPUs.
 
   DSL text ──parse──► StencilSpec ──IR lowering──► optimized spec
-      ──analytical model (H100)──► ranked configs
-      ──runner build──► batched runner over the CUDA tile kernels
+      ──analytical model (H100 × pool)──► ranked configs
+      ──runner build──► batched runner (CUDA tile kernels, or shards)
 
-PyTorch port of the single-device path of ``repro.core.autotune``.  For
-``k=1`` the reference builds through ``distribute.build_runner``, a
-shard_map pipeline that never reaches its Pallas kernel.  Here the runner
-comes from :func:`repro_torch.runtime.batching.build_batched_runner` for
-the chosen config, so the main path runs K1 (``buffer_depth=0``) or K2
-(``buffer_depth=2``).
+PyTorch port of ``repro.core.autotune``.  The ranking is made on the
+card's data-sheet row in a pool of ``len(devices)``
+(:meth:`GPUPlatform.with_gpus`), and the runner comes from
+:func:`repro_torch.runtime.batching.build_batched_runner` over that pool:
+on one card the main path runs K1 (``buffer_depth=0``) or K2
+(``buffer_depth=2``); a multi-device design runs the shard runner of
+:mod:`repro_torch.core.distribute`.
 
 As in the reference, the ranking is preflighted
-(:func:`repro_torch.core.analysis.preflight`, over the runner's one
-device): the first feasible candidate is built and every skipped one is
-kept as a diagnostic, after the certified rounding-error bound (SASA500,
+(:func:`repro_torch.core.analysis.preflight`, over the pool, with the
+device count the batched runner will use): the first feasible candidate
+is built and every skipped one is kept as a diagnostic, after the
+certified rounding-error bound (SASA500,
 :func:`repro_torch.core.numerics.bound_diagnostic`).
 """
 from __future__ import annotations
@@ -29,7 +31,7 @@ from repro_torch.core.ir import PassReport, lower
 from repro_torch.core.model import ParallelismConfig, Prediction
 from repro_torch.core.platform import DEFAULT_GPU, GPUPlatform, gpu_platform_for
 from repro_torch.core.spec import StencilSpec
-from repro_torch.kernels.ops import resolve_device
+from repro_torch.kernels.ops import resolve_pool
 
 
 @dataclasses.dataclass
@@ -47,12 +49,32 @@ class TunedDesign:
         return self.prediction.config
 
 
-def _platform_for(device: torch.device | None, platform):
-    if platform is not None:
-        return platform
-    if device is not None and device.type == "cuda":
-        return gpu_platform_for(torch.cuda.get_device_name(device))
-    return DEFAULT_GPU
+def ranking_pool(device=None, devices=None) -> list[torch.device] | None:
+    """The pool a ranking is made for: the caller's, else every visible
+    CUDA device, else ``None`` (one card of the default row)."""
+    if devices is None and device is None and not torch.cuda.is_available():
+        return None
+    return resolve_pool(devices, device)
+
+
+def _platform_for(pool, platform, clip: bool = False):
+    """The platform a pool ranks on.
+
+    With none given: the data-sheet row of the pool's first card (the
+    H100 SXM row without CUDA) in a pool of ``len(pool)``.  An explicit
+    platform keeps its own pool size for a ranking-only study and is
+    clipped to the pool when a runner is built (``clip``), as the
+    reference clips its chip count.
+    """
+    n = len(pool) if pool else 1
+    if platform is None:
+        dev = pool[0] if pool else None
+        base = (gpu_platform_for(torch.cuda.get_device_name(dev))
+                if dev is not None and dev.type == "cuda" else DEFAULT_GPU)
+        return base.with_gpus(n)
+    if clip:
+        return platform.with_gpus(min(platform.num_gpus, n))
+    return platform
 
 
 def _single_grid_runner(batched):
@@ -66,7 +88,7 @@ def _single_grid_runner(batched):
     return runner
 
 
-def _tune(source_or_spec, platform, iterations, device, build,
+def _tune(source_or_spec, platform, iterations, device, devices, build,
           keep=None) -> TunedDesign:
     spec_in = (
         source_or_spec if isinstance(source_or_spec, StencilSpec)
@@ -74,8 +96,10 @@ def _tune(source_or_spec, platform, iterations, device, build,
     )
     lowered = lower(spec_in)
     spec = lowered.spec  # ranking AND executors consume the optimized trees
-    dev = resolve_device(device) if build else None
-    platform = _platform_for(dev, platform)
+    pool = resolve_pool(devices, device) if build else ranking_pool(
+        device, devices
+    )
+    platform = _platform_for(pool, platform, clip=build)
     ranking = [
         p for p in model.choose_best(
             spec, platform, iterations=iterations, optimize=False
@@ -84,10 +108,11 @@ def _tune(source_or_spec, platform, iterations, device, build,
     ]
     if not ranking:
         raise RuntimeError(f"no candidate configuration for {spec.name!r}")
-    # one device, and every port runner is a batched single-device runner
+    # every port runner is a batched runner: a temporal config on the
+    # pool's first device, a row partition over its first min(k, len(pool))
     verdicts = analysis.preflight(
-        spec, [p.config for p in ranking], 1, iterations=iterations,
-        batched=True,
+        spec, [p.config for p in ranking], len(pool) if pool else 1,
+        iterations=iterations, batched=True,
     )
     diags = [numerics.bound_diagnostic(spec, iterations=iterations)]
     diags += [v.diagnostic("info") for v in verdicts if not v.feasible]
@@ -103,7 +128,7 @@ def _tune(source_or_spec, platform, iterations, device, build,
         from repro_torch.runtime.batching import build_batched_runner
 
         runner = _single_grid_runner(build_batched_runner(
-            spec, feasible[0].config, iterations=iterations, device=dev,
+            spec, feasible[0].config, iterations=iterations, devices=pool,
         ))
     return TunedDesign(spec, feasible[0], ranking, runner, lowered.reports,
                        tuple(diags))
@@ -115,14 +140,17 @@ def autotune(
     iterations: int | None = None,
     device=None,
     build: bool = True,
+    devices=None,
 ) -> TunedDesign:
     """The SASA entry point: DSL text (or a spec) -> ranked design + runner.
 
-    ``device`` defaults to ``cuda``; with no device given and no CUDA
-    present it raises (pass ``device="cpu"`` for the plain versions).
-    ``platform`` defaults to the data-sheet row of the card's SKU.
+    The pool is ``devices`` (a device may repeat: ``[torch.device("cpu")]
+    * 8`` runs shard designs on the host), or ``device`` alone, or every
+    visible CUDA device; building without CUDA and without a pool raises
+    (pass ``device="cpu"`` for the plain versions).  ``platform`` defaults
+    to the data-sheet row of the pool's card, in a pool of its size.
     """
-    return _tune(source_or_spec, platform, iterations, device, build)
+    return _tune(source_or_spec, platform, iterations, device, devices, build)
 
 
 def soda_baseline(
@@ -131,11 +159,14 @@ def soda_baseline(
     iterations: int | None = None,
     device=None,
     build: bool = True,
+    devices=None,
 ) -> TunedDesign:
     """State-of-the-art baseline (SODA): temporal parallelism only.
 
-    On one device every candidate is temporal, so this ranks as
-    :func:`autotune` does; it is kept for the paper's Sec. 5.4 comparison.
+    The paper's Sec. 5.4 comparison point: the same single-PE designs,
+    but no spatial or hybrid candidate.  On one device every candidate is
+    temporal, so it ranks as :func:`autotune` does; on a pool of more than
+    one, :func:`autotune` also weighs the row-partitioned designs.
     """
-    return _tune(source_or_spec, platform, iterations, device, build,
-                 keep=lambda p: p.config.variant == "temporal")
+    return _tune(source_or_spec, platform, iterations, device, devices,
+                 build, keep=lambda p: p.config.variant == "temporal")

@@ -31,6 +31,13 @@ Part 2 — GPU model for the CUDA tile kernel (one card).  A round of ``s``
     redundant halo compute            redundant halo compute (identical)
 
   Latency = compute + HBM + one launch per round.
+
+  On a pool of ``num_gpus`` cards the row-partitioned variants (spatial_r,
+  spatial_s, hybrid_r, hybrid_s) are priced as they run: eager torch on
+  each shard's band (rows plus the variant's halo rows), paced by the
+  host launching one kernel per operator, with the halo exchanges over
+  the card's peer link (``link_bw``, ``link_latency_s``) at the
+  reference's bytes and message counts.
 """
 from __future__ import annotations
 
@@ -90,6 +97,8 @@ class Prediction:
     rounds: int
     smem_bytes: float = 0.0     # shared memory of one thread block
     cell_updates: float = 0.0   # GPU: stage cell updates over the whole run
+    host_term: float = 0.0      # GPU shard path: seconds of eager launches
+    launches: int = 0           # GPU shard path: operators launched per run
     notes: str = ""
 
     @property
@@ -98,6 +107,7 @@ class Prediction:
             "compute": self.compute_term,
             "memory": self.memory_term,
             "collective": self.collective_term,
+            "host": self.host_term,
         }
         return max(terms, key=terms.get)
 
@@ -305,7 +315,12 @@ def predict_gpu(
     gpu: GPUPlatform,
     iterations: int | None = None,
 ) -> Prediction:
-    """Latency of one single-device configuration on the CUDA tile kernel.
+    """Latency of one configuration on the CUDA tile kernel.
+
+    A row-partitioned configuration (``k > 1``, not temporal) runs no
+    tile kernel and is priced by :func:`_predict_shard`; the rest of this
+    docstring is the single-device model, which also prices a temporal
+    configuration on any pool (the runners fuse its stages on one card).
 
       * HBM term: per round every floating input window is read (tile +
         2sr per axis), and every halo-index map window (int32) once for
@@ -329,6 +344,8 @@ def predict_gpu(
     from repro_torch.kernels.cuda_build import float_inputs
 
     it = spec.iterations if iterations is None else iterations
+    if cfg.variant != "temporal" and cfg.k > 1:
+        return _predict_shard(spec, cfg, gpu, it)
     s = max(min(cfg.s, it), 1)
     if spec.wrap_index_inputs:
         s = min(s, max(spec.wrap_round_depth, 1))
@@ -367,6 +384,76 @@ def predict_gpu(
     )
 
 
+def _predict_shard(
+    spec: StencilSpec, cfg: ParallelismConfig, gpu: GPUPlatform, it: int
+) -> Prediction:
+    """One run of a ``k``-way row partition as the shard runner executes
+    it (:mod:`repro_torch.core.distribute`): eager torch over each shard's
+    band, one small kernel per operator of the tile body, all launched by
+    one host thread.  No CUDA kernel of the port runs on this path.
+
+      * host term: the operators launched, times ``gpu.eager_op_s``
+        (measured).  Each block call runs the operators
+        :func:`repro_torch.core.distribute.block_call_work` counts for its
+        depth; each halo exchange of one input adds a concatenation per
+        shard, two zero edges unless it wraps, and its peer copies;
+      * memory term: each block call's whole-band passes, each reading two
+        band-sized operands and writing one, on one card (the shards run
+        in parallel, one per card).  The band is the shard's
+        ``ceil(R / k)`` rows plus the variant's halo rows: ``it * r`` on
+        each side for the ``*_r`` variants, ``step * r`` for the others;
+      * collective term: the reference's bytes and message counts
+        (``repro.core.model.predict_tpu``) over ``gpu.link_bw``, plus
+        ``gpu.link_latency_s`` per message.
+
+    The host issues kernels ahead of the card, so the larger of the host
+    and memory terms paces the run; the collectives add to it.
+    """
+    from repro_torch.core.distribute import block_call_work
+
+    R, C, r, k = spec.rows, spec.cols_flat, spec.radius, cfg.k
+    itemsize = spec.itemsize
+    s = 1 if cfg.variant in ("spatial_r", "spatial_s") else max(min(cfg.s, it), 1)
+    rounds = math.ceil(it / s)
+    steps = [s] * (rounds - 1) + [it - (rounds - 1) * s]
+    rows_local = math.ceil(R / k)
+    if cfg.variant in ("spatial_r", "hybrid_r"):
+        halo = min(it * r, rows_local)
+        coll_bytes = 2 * halo * C * itemsize * spec.num_inputs
+        n_msgs = 2
+        exchanges = spec.num_inputs
+    else:
+        halo = s * r
+        h = r if cfg.variant == "spatial_s" else min(s * r, rows_local)
+        coll_bytes = 2 * h * C * itemsize * rounds
+        n_msgs = 2 * rounds
+        exchanges = (spec.num_inputs - 1 + it if cfg.variant == "spatial_s"
+                     else spec.num_inputs * rounds)
+    wrap = spec.boundary.kind == "periodic"
+    per_exchange = k + (2 * k if wrap else 2 + 2 * (k - 1))
+    work = [block_call_work(spec, step) for step in steps]
+    launches = k * sum(w[0] for w in work) + exchanges * per_exchange
+    band_bytes = (rows_local + 2 * halo) * C * itemsize
+    hbm_bytes = float(3 * band_bytes * sum(w[1] for w in work))
+    host_term = launches * gpu.eager_op_s
+    memory_term = hbm_bytes / gpu.hbm_bw
+    collective_term = coll_bytes / gpu.link_bw + n_msgs * gpu.link_latency_s
+    return Prediction(
+        config=cfg,
+        latency=max(host_term, memory_term) + collective_term,
+        compute_term=0.0,
+        memory_term=memory_term,
+        collective_term=collective_term,
+        collective_bytes=float(coll_bytes),
+        hbm_bytes=hbm_bytes,
+        flops=0.0,
+        rounds=rounds,
+        host_term=host_term,
+        launches=launches,
+        notes="shard (eager torch)",
+    )
+
+
 def resident_blocks(smem: int, gpu: GPUPlatform) -> int:
     """Thread blocks of the tile kernel one SM holds at once: its shared
     memory (1 KB per block taken by the system) or its 2048 threads."""
@@ -382,11 +469,21 @@ TILE_ROWS = {1: (0, 1024), 2: (0, 64, 128), 3: (0, 16)}
 def gpu_candidate_configs(
     spec: StencilSpec, gpu: GPUPlatform, iterations: int | None = None
 ) -> list[ParallelismConfig]:
-    """The single-device design space: temporal ``k=1`` for every tile row
-    extent of :data:`TILE_ROWS` at every fusion depth the shared memory
-    allows, each as K1 (``buffer_depth=0``) and as the batch-in-grid K2
-    (``buffer_depth=2``)."""
+    """The design space on a pool of ``gpu.num_gpus`` cards.
+
+    Single-device: temporal ``k=1`` for every tile row extent of
+    :data:`TILE_ROWS` at every fusion depth the shared memory allows, each
+    as K1 (``buffer_depth=0``) and as the batch-in-grid K2
+    (``buffer_depth=2``).  Then, for every ``k > 1`` dividing the pool,
+    the row-partitioned variants at every fusion depth up to ``it`` (the
+    shard path holds no tile, so ``tile_rows`` is 0 and shared memory sets
+    no limit), under the reference's guards
+    (``repro.core.model.tpu_candidate_configs``): ``R // k >= 2r``,
+    ``it * r <= R // k`` for the ``*_r`` variants and ``s * r <= R // k``
+    for ``hybrid_s``.
+    """
     it = spec.iterations if iterations is None else iterations
+    r = spec.radius
     out: list[ParallelismConfig] = []
     seen = set()
     for rows in TILE_ROWS[spec.ndim]:
@@ -405,6 +502,19 @@ def gpu_candidate_configs(
             out.append(ParallelismConfig(
                 "temporal", k=1, s=s, tile_rows=rows, buffer_depth=2,
             ))
+    n = gpu.num_gpus
+    for k in range(2, n + 1):
+        rows_local = spec.rows // k
+        if n % k or rows_local < 2 * r:
+            continue
+        if it * r <= rows_local:
+            out.append(ParallelismConfig("spatial_r", k=k))
+        out.append(ParallelismConfig("spatial_s", k=k))
+        for s in _fusion_depths(it)[1:]:
+            if s * r <= rows_local:
+                out.append(ParallelismConfig("hybrid_s", k=k, s=s))
+            if it * r <= rows_local:
+                out.append(ParallelismConfig("hybrid_r", k=k, s=s))
     return out
 
 

@@ -18,6 +18,15 @@
   both are measured on the card (``chip_smoke.py`` phase ``sweep``), not
   data-sheet figures.  ``smem_per_sm`` is the shared memory of one SM, of
   which each resident block also takes 1 KB for the system.
+  ``num_gpus`` is the size of the device pool the multi-device designs
+  rank over (:meth:`GPUPlatform.with_gpus`); ``link_bw`` is one
+  direction of one card's peer link, from the same data sheets (SXM:
+  NVLink, 900 GB/s per GPU in both directions together; PCIe: the PCIe
+  Gen5 row, 128 GB/s in both directions, since the NVLink bridge of the
+  PCIe card joins only a pair).  ``link_latency_s``, the fixed cost of
+  one peer copy, is an assumption, as ``launch_s`` is.  ``eager_op_s`` is
+  the host time of one eager torch operator on the shard path (each
+  launches one small kernel), measured by ``tools/shard_profile.py``.
 """
 from __future__ import annotations
 
@@ -62,12 +71,26 @@ class GPUPlatform:
     # "NVIDIA H100 80GB HBM3, 700.00 W" card (chip_smoke.py sweep_summary).
     cell_update_s: float = 1.478e-12
     full_rate_blocks: int = 3
+    num_gpus: int = 1                     # device pool the ranker weighs
+    link_bw: float = 450e9                # B/s, NVLink, one direction
+    link_latency_s: float = 5e-6          # assumed per-copy cost (model)
+    # Host seconds per eager operator of the shard path: a shard run's
+    # time over the operators the model counts for it, spatial_s and
+    # hybrid_r(s=4) on JACOBI2D 9720x1024 over four logical devices of an
+    # "NVIDIA H100 80GB HBM3, 700.00 W" card (tools/shard_profile.py): the
+    # median of 13.7-24.1 us measured on three machines.
+    eager_op_s: float = 1.87e-5
+
+    def with_gpus(self, n: int) -> "GPUPlatform":
+        """The same card in a pool of ``n``."""
+        return dataclasses.replace(self, num_gpus=n)
 
 
 H100_SXM = GPUPlatform()
 # PCIe: the SXM update cost scaled by the float32 rates (not measured)
 H100_PCIE = GPUPlatform(
     name="h100-pcie", hbm_bw=2.0e12, sms=114, fp32_flops=51e12,
+    link_bw=64e9,
     cell_update_s=H100_SXM.cell_update_s * 67 / 51,
 )
 

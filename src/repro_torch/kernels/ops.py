@@ -37,6 +37,35 @@ def resolve_device(device=None) -> torch.device:
     return torch.device("cuda")
 
 
+def _indexed(device) -> torch.device:
+    """``device`` with its index: ``cuda`` names the current card, so one
+    card has one name wherever a pool is used as a key."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def resolve_pool(devices=None, device=None) -> list[torch.device]:
+    """The device pool of an entry point: ``devices`` as given (a device
+    may repeat: ``[torch.device("cpu")] * 8`` or ``[cuda:0] * 4`` are
+    pools of 8 and 4), else a pool of one (``device``), else every visible
+    CUDA device -- and a :class:`RuntimeError` when CUDA is absent.  A
+    CUDA device without an index is the current card (``cuda:0`` unless
+    set otherwise)."""
+    if devices is not None:
+        if device is not None:
+            raise ValueError("pass device= or devices=, not both")
+        pool = [_indexed(d) for d in devices]
+        if not pool:
+            raise ValueError("empty device pool")
+        return pool
+    if device is not None:
+        return [_indexed(device)]
+    resolve_device()
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
 def to_device(
     spec: StencilSpec, arrays_np: Mapping[str, object], device=None
 ) -> dict[str, torch.Tensor]:

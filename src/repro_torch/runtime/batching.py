@@ -1,18 +1,29 @@
-"""Batched stencil execution on one device: one design, many grids.
+"""Batched stencil execution: one design, many grids, over a device pool.
 
-PyTorch port of the single-device half of
-``repro.runtime.batching.build_batched_runner``.  Every array of a batch
-call is ``(B,) + spec.shape``; entries are independent and the spec's
-boundary rule applies per grid.  The design's config picks the kernel:
+PyTorch port of ``repro.runtime.batching``.  Every array of a batch call
+is ``(B,) + spec.shape``; entries are independent and the spec's boundary
+rule applies per grid.  The config and the pool pick the executor:
 
-  * ``cfg.buffer_depth >= 2`` — the batch-in-grid tile kernel K2
+  * a row-partitioned config (spatial or hybrid, ``k > 1``), on a pool
+    of more than one device, runs the shard runner of
+    :func:`repro_torch.core.distribute.build_runner` over the first
+    ``min(cfg.k, len(pool))`` devices (``path == "shard_map"``,
+    ``backend == "torch"``: eager torch, no CUDA kernel);
+  * everything else runs on the pool's first device, a temporal config
+    on any pool: the tile kernel fuses its ``s`` stages on one card,
+    which is what the reference's pipeline of ``s`` devices computes, and
+    :func:`devices_used` is 1.  There ``cfg.buffer_depth >= 2``
+    takes the batch-in-grid tile kernel K2
     (:func:`repro_torch.kernels.pipeline.stencil_run_batched`): one launch
     per round for the whole batch (``path == "tile_pipeline"``);
-  * otherwise the single-PE kernel K1 per entry
+  * and the rest the single-PE kernel K1 per entry
     (:func:`repro_torch.kernels.ops.stencil_run`, ``path == "single_pe"``).
 
-Both run the same tile program, so their results are bitwise equal.  On a
-CPU device the same calls run the kernels' plain versions.
+K1 and K2 run the same tile program, so their results are bitwise equal.
+On a CPU device the same calls run the kernels' plain versions.  A
+row-partitioned config needing more devices than the pool holds is
+**degraded**, as in the reference: it warns :class:`DegradedDesignWarning`
+(or raises under ``strict``) and runs on what the pool has.
 
 Every runner exposes the reference's dispatch phases: ``run.stage(arrays)``
 places inputs on the device (through pinned host memory for CUDA),
@@ -32,14 +43,17 @@ host-streamed wrap margins and wrap maps; see
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Mapping, Sequence
 
 import numpy as np
 import torch
 
+from repro_torch.core.distribute import build_runner
 from repro_torch.core.model import ParallelismConfig
 from repro_torch.core.spec import StencilSpec
 from repro_torch.kernels import ops, pipeline
+from repro_torch.kernels.ops import resolve_pool
 from repro_torch.kernels.blockops import torch_dtype
 from repro_torch.kernels.stencil import default_tile
 from repro_torch.runtime.bucketing import bucket_plan
@@ -49,16 +63,22 @@ class DegradedDesignWarning(RuntimeWarning):
     """A design is executing with less parallelism than its config claims."""
 
 
+def devices_used(cfg: ParallelismConfig, n_avail: int) -> int:
+    """Devices a batched runner of ``cfg`` occupies on a pool of
+    ``n_avail``: one for a temporal config (fused rounds of the tile
+    kernel), else ``min(cfg.devices_needed, n_avail)``."""
+    if cfg.variant == "temporal":
+        return 1
+    return min(cfg.devices_needed, n_avail)
+
+
 def is_degraded(cfg: ParallelismConfig, n_avail: int) -> bool:
     """True when a pool of ``n_avail`` devices cannot realise ``cfg``'s
-    parallelism.  The one sanctioned exception is a temporal design on a
-    one-device host: the PE cascade degenerates to fused rounds on one
-    card with the fusion depth (and the model's single-card prediction)
-    preserved."""
-    n_dev = min(cfg.devices_needed, n_avail)
-    return n_dev < cfg.devices_needed and not (
-        cfg.variant == "temporal" and n_dev <= 1
-    )
+    parallelism.  A temporal design never is: its PE cascade runs as
+    fused rounds of the tile kernel on one card, with the fusion depth
+    (and the model's single-card prediction) preserved -- the reference's
+    sanctioned one-device case, taken on every pool."""
+    return cfg.variant != "temporal" and n_avail < cfg.devices_needed
 
 
 def degraded_message(cfg: ParallelismConfig, n_avail: int) -> str:
@@ -135,24 +155,63 @@ def build_batched_runner(
     cfg: ParallelismConfig,
     iterations: int | None = None,
     device=None,
+    devices=None,
+    strict: bool = False,
 ):
     """A runner mapping ``{name: (B,) + spec.shape}`` to ``(B,) +
-    spec.shape`` for a single-device configuration.
+    spec.shape`` for a configuration on a device pool.
 
-    The kernel tile comes from ``cfg.tile_rows`` alone, the same field the
-    ranker priced and checked against shared memory.
-    ``device`` defaults to ``cuda`` and raises when CUDA is absent.
-    Multi-device configs are not ported yet and raise.  The runner carries
-    ``.path`` ("single_pe" or "tile_pipeline"), ``.backend``, ``.cfg``,
-    ``.device`` and the dispatch phases described in the module docstring.
+    The pool is ``devices`` (a device may repeat), or ``device`` alone,
+    or every visible CUDA device; it raises when neither is given and CUDA
+    is absent.  ``n = devices_used(cfg, len(pool))``: with ``n > 1`` the
+    shard runner runs on ``pool[:n]``, else the K1/K2 tile kernel on
+    ``pool[0]`` at fusion depth ``min(cfg.s, iterations)``, its tile from
+    ``cfg.tile_rows`` alone (the field the ranker priced and checked
+    against shared memory); a temporal config always takes the kernel.
+    A degraded config (a row partition on a pool smaller than ``k``)
+    warns :class:`DegradedDesignWarning`, or raises :class:`ValueError`
+    under ``strict``.  The runner carries ``.path`` ("single_pe",
+    "tile_pipeline" or "shard_map"), ``.backend``, ``.cfg``, ``.device``
+    (the pool's first), ``.devices`` (those it runs on), ``.n_devices``,
+    ``.devices_requested``, ``.degraded`` and the dispatch phases
+    described in the module docstring.
     """
     it = spec.iterations if iterations is None else iterations
-    dev = ops.resolve_device(device)
-    if cfg.variant != "temporal" and cfg.k > 1:
-        raise NotImplementedError(
-            f"{cfg.variant}(k={cfg.k}) needs several devices; multi-device "
-            "designs are not ported yet"
-        )
+    pool = resolve_pool(devices, device)
+    need = cfg.devices_needed
+    n_dev = devices_used(cfg, len(pool))
+    degraded = is_degraded(cfg, len(pool))
+    if degraded:
+        msg = degraded_message(cfg, len(pool))
+        if strict:
+            raise ValueError(msg)
+        warnings.warn(msg, DegradedDesignWarning, stacklevel=2)
+    if n_dev > 1:
+        run = _shard_runner(spec, cfg, it, pool[:n_dev])
+    else:
+        run = _kernel_runner(spec, cfg, it, pool[0])
+    run.devices_requested = need
+    run.degraded = degraded
+    return run
+
+
+def _shard_runner(spec, cfg, it, pool):
+    """The batched shard runner, validated like the kernel runner."""
+    inner = build_runner(spec, cfg, iterations=it, devices=pool, batched=True)
+
+    def run(arrays: Mapping[str, object]) -> np.ndarray:
+        validate_batch(spec, arrays)
+        return inner.finalize(inner.dispatch(inner.stage(arrays)))
+
+    for attr in ("spec", "cfg", "iterations", "path", "backend", "device",
+                 "devices", "n_devices", "tile",
+                 "stage", "dispatch", "ready", "finalize"):
+        setattr(run, attr, getattr(inner, attr))
+    return run
+
+
+def _kernel_runner(spec, cfg, it, dev):
+    """K1 or K2 on one device (see the module docstring)."""
     s = max(min(cfg.s, it), 1)
     tile = default_tile(spec.ndim, cfg.tile_rows)
     backend = resolve_backend(dev)
@@ -218,9 +277,8 @@ def build_batched_runner(
     run.path = path
     run.backend = backend
     run.device = dev
+    run.devices = [dev]
     run.n_devices = 1
-    run.devices_requested = cfg.devices_needed
-    run.degraded = is_degraded(cfg, 1)
     run.tile = tile
     run.stage = stage
     run.dispatch = dispatch
@@ -237,6 +295,7 @@ def build_bucket_runner(
     device=None,
     inner=None,
     wrap_rounds: int | None = None,
+    devices=None,
 ):
     """Streamed-boundary wrapper: a design built for ``bucket_shape``
     serving any fitting grid with the spec's exact boundary semantics.
@@ -261,7 +320,11 @@ def build_bucket_runner(
     Pass ``inner`` to wrap an already-built batched runner for the
     streamed bucket spec (the design-cache path).  ``wrap_rounds``
     (periodic only) serves from the narrow ``wrap_rounds * radius``
-    margin.  ``device`` defaults to ``cuda`` and raises without it.
+    margin.  ``device`` / ``devices`` are :func:`build_batched_runner`'s:
+    a row-partitioned config on a pool runs the bucket spec on the
+    shard runner, whose exchanges carry the replicate halo-index maps with
+    the rows like every other input (a periodic spec there needs the wide
+    margin: ``wrap_rounds=None``).
     """
     bucket_shape = tuple(int(b) for b in bucket_shape)
     plan = bucket_plan(
@@ -270,7 +333,8 @@ def build_bucket_runner(
     mspec = plan.mspec
     if inner is None:
         inner = build_batched_runner(
-            mspec, cfg, iterations=iterations, device=device
+            mspec, cfg, iterations=iterations, device=device,
+            devices=devices,
         )
 
     def run(arrays: Mapping[str, object]) -> np.ndarray:
@@ -292,7 +356,8 @@ def build_bucket_runner(
     run.wrap_rounds = plan.wrap_rounds
     run.inner = inner
     for attr in ("cfg", "iterations", "path", "backend", "device",
-                 "n_devices", "devices_requested", "degraded", "tile",
+                 "devices", "n_devices", "devices_requested", "degraded",
+                 "tile",
                  "stage", "dispatch", "ready", "finalize"):
         setattr(run, attr, getattr(inner, attr))
     return run

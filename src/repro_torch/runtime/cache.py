@@ -10,15 +10,17 @@ both levels:
     iterations)`` -> ranked predictions and the chosen
     :class:`ParallelismConfig`;
   * the *runner* level -- ``(structural fingerprint, shape, config,
-    device, devices used, iterations)`` -> a batched runner
+    device pool, devices used, iterations)`` -> a batched runner
     (:func:`repro_torch.runtime.batching.build_batched_runner`).
 
 Keys split the spec's **structural fingerprint** (everything but the grid
 shape) from the shape, so shape-bucketed serving -- one logical kernel
 owning a ladder of bucket designs (:class:`BucketedDesign`) -- shares
-entries across registrations that differ only in declared grid size.  A
-port runner occupies exactly one device (the runner's own), so the
-reference's device-pool size is 1 wherever it appears.
+entries across registrations that differ only in declared grid size.  The
+device pool is the caller's (``devices=``, a device may repeat; or
+``device=`` alone; or every visible CUDA device), as in the reference:
+runner keys hold the pool and the device count a runner actually uses, so
+a runner built degraded on a small pool is rebuilt when the pool grows.
 
 The store-backed parts of the reference (``store=``, telemetry read and
 written through disk) wait for the persistence slice and raise
@@ -32,18 +34,22 @@ import hashlib
 import time
 from typing import Mapping, Sequence
 
-import torch
-
 from repro_torch.core import analysis, dsl
 from repro_torch.core.analysis import Diagnostic, require_bucketable
-from repro_torch.core.autotune import TunedDesign, _platform_for, autotune
+from repro_torch.core.autotune import (
+    TunedDesign,
+    _platform_for,
+    autotune,
+    ranking_pool,
+)
 from repro_torch.core.model import ParallelismConfig
 from repro_torch.core.spec import StencilSpec
-from repro_torch.kernels.ops import resolve_device
+from repro_torch.kernels.ops import resolve_pool
 from repro_torch.runtime.batching import (
     build_batched_runner,
     build_bucket_runner,
     degraded_message,
+    devices_used,
     is_degraded,
 )
 from repro_torch.runtime.bucketing import (
@@ -51,10 +57,6 @@ from repro_torch.runtime.bucketing import (
     bucket_spec,
     padded_request_shape,
 )
-
-# A port runner runs on its one device: the pool every guard keys on.
-N_POOL = 1
-
 
 def structural_fingerprint(spec: StencilSpec) -> str:
     """Content hash of everything about a spec *except* its grid shape.
@@ -91,8 +93,8 @@ def _as_spec(source_or_spec) -> StencilSpec:
     return dsl.parse(source_or_spec)
 
 
-def _device_key(device) -> tuple:
-    return (device.type, device.index)
+def _pool_key(pool) -> tuple[str, ...]:
+    return tuple(str(d) for d in pool)
 
 
 @dataclasses.dataclass
@@ -161,15 +163,19 @@ class DesignCache:
         platform=None,
         iterations: int | None = None,
         device=None,
+        devices=None,
+        clip_to_devices: bool = False,
     ) -> TunedDesign:
         """Cached ``autotune(..., build=False)``: ranked configs for a spec.
 
-        ``platform`` defaults to the data-sheet row of ``device``'s card
-        (the H100 row without a CUDA device), as :func:`autotune` picks it.
+        ``platform`` defaults to the data-sheet row of the pool's card (the
+        H100 row without a CUDA device) in a pool of its size, as
+        :func:`autotune` picks it; an explicit platform is clipped to the
+        pool only with ``clip_to_devices`` (a runner will be built).
         """
         spec = _as_spec(source_or_spec)
-        dev = None if device is None else torch.device(device)
-        plat = _platform_for(dev, platform)
+        pool = ranking_pool(device, devices)
+        plat = _platform_for(pool, platform, clip=clip_to_devices)
         key = (
             "design", structural_fingerprint(spec), tuple(spec.shape),
             plat, iterations,
@@ -182,7 +188,7 @@ class DesignCache:
         self.autotune_calls += 1
         t0 = time.perf_counter()
         tuned = autotune(
-            spec, platform=plat, iterations=iterations, device=dev,
+            spec, platform=plat, iterations=iterations, devices=pool,
             build=False,
         )
         st.build_time_s += time.perf_counter() - t0
@@ -199,21 +205,26 @@ class DesignCache:
         cfg: ParallelismConfig,
         iterations: int | None = None,
         device=None,
+        devices=None,
         strict: bool = False,
     ):
-        """Cached batched runner for ``(spec, cfg, device, iterations)``.
+        """Cached batched runner for ``(spec, cfg, pool, iterations)``.
 
-        ``device`` defaults to ``cuda`` and raises without it.  ``strict``
-        refuses a config the one device cannot realise (enforced before
-        the lookup, so strict and non-strict callers share entries).
+        The pool is ``devices``, or ``device`` alone, or every visible CUDA
+        device (and a :class:`RuntimeError` without CUDA).  The key holds
+        the pool and the device count the runner will occupy, so a runner
+        built degraded (pool smaller than the config) is rebuilt, not
+        reused, when the pool changes.  ``strict`` refuses a degraded
+        config before the lookup, so strict and non-strict callers share
+        entries.
         """
-        dev = resolve_device(device)
-        n_used = min(cfg.devices_needed, N_POOL)
-        if strict and is_degraded(cfg, N_POOL):
-            raise ValueError(degraded_message(cfg, N_POOL))
+        pool = resolve_pool(devices, device)
+        n_used = devices_used(cfg, len(pool))
+        if strict and is_degraded(cfg, len(pool)):
+            raise ValueError(degraded_message(cfg, len(pool)))
         key = (
             "runner", structural_fingerprint(spec), tuple(spec.shape), cfg,
-            _device_key(dev), n_used, iterations,
+            _pool_key(pool), n_used, iterations,
         )
         st = self._stats.setdefault(key, KeyStats())
         if key in self._runners:
@@ -228,7 +239,7 @@ class DesignCache:
         t0 = time.perf_counter()
         try:
             run = build_batched_runner(
-                spec, cfg, iterations=iterations, device=dev
+                spec, cfg, iterations=iterations, devices=pool
             )
         except ValueError as e:
             self._failed[key] = str(e)
@@ -253,6 +264,7 @@ class DesignCache:
         iterations: int | None = None,
         device=None,
         strict: bool = False,
+        devices=None,
     ) -> CachedDesign:
         """Rank (cached) then build (cached) the best feasible design.
 
@@ -260,12 +272,13 @@ class DesignCache:
         cache -- the call did no ranking and built no runner.
         """
         spec = _as_spec(source_or_spec)
-        dev = resolve_device(device)
+        pool = resolve_pool(devices, device)
         fp = spec_fingerprint(spec)
         before_miss = self.misses
         before_build_s = self._total_build_s()
         tuned = self.design(
-            spec, platform=platform, iterations=iterations, device=dev
+            spec, platform=platform, iterations=iterations, devices=pool,
+            clip_to_devices=True,   # a runner is built: rank what fits
         )
         # feasibility retry loop (the paper's "build next best design"):
         # known-infeasible candidates are skipped without touching the
@@ -273,7 +286,7 @@ class DesignCache:
         # per config, so a config that built once keeps winning.  The
         # runner runs ``tuned.spec``, the IR-lowered trees the model ranked.
         verdicts = analysis.preflight(
-            tuned.spec, [p.config for p in tuned.ranking], N_POOL,
+            tuned.spec, [p.config for p in tuned.ranking], len(pool),
             iterations=iterations, batched=True,
         )
         diags: list[Diagnostic] = []
@@ -288,7 +301,7 @@ class DesignCache:
             try:
                 run = self.runner(
                     tuned.spec, pred.config, iterations=iterations,
-                    device=dev, strict=strict,
+                    devices=pool, strict=strict,
                 )
                 chosen = pred
                 break
@@ -328,6 +341,7 @@ class DesignCache:
         device=None,
         strict: bool = False,
         max_buckets: int | None = None,
+        devices=None,
     ) -> "BucketedDesign":
         """Register one logical kernel served across many grid shapes.
 
@@ -350,7 +364,7 @@ class DesignCache:
             bucketer=bucketer if bucketer is not None else ShapeBucketer(),
             platform=platform,
             iterations=iterations,
-            device=resolve_device(device),
+            devices=resolve_pool(devices, device),
             strict=strict,
             max_buckets=max_buckets,
         )
@@ -437,7 +451,7 @@ class BucketedDesign:
     def __init__(
         self, cache: DesignCache, spec: StencilSpec,
         bucketer: ShapeBucketer, platform=None, iterations=None,
-        device=None, strict: bool = False, max_buckets: int | None = None,
+        devices=None, strict: bool = False, max_buckets: int | None = None,
     ):
         if max_buckets is not None and max_buckets < 1:
             raise ValueError(f"max_buckets must be >= 1, got {max_buckets}")
@@ -446,7 +460,7 @@ class BucketedDesign:
         self.bucketer = bucketer
         self.platform = platform
         self.iterations = iterations
-        self.device = resolve_device(device)
+        self.devices = resolve_pool(devices)
         self.strict = strict
         self.max_buckets = max_buckets
         self.structural = structural_fingerprint(spec)
@@ -464,19 +478,20 @@ class BucketedDesign:
 
         Decided once at first routing and pinned for the registration's
         lifetime (margins are baked into bucket routing): ``None`` unless
-        the boundary is periodic; then the design-level ranking for the
-        declared shape picks the fusion depth ``s`` the bucket designs
-        will run, and the margin is ``s * radius``.  The round loop
-        re-imposes the wrap between rounds from streamed wrap maps (the
-        reference keeps the wide margin on a multi-device pool; a port
-        runner always has one device).
+        the boundary is periodic *and* the pool is one device (the
+        between-round re-wrap needs the whole grid resident; shard designs
+        keep the wide ``iterations * radius`` margin, as in the reference).
+        Then the design-level ranking for the declared shape picks the
+        fusion depth ``s`` the bucket designs will run, and the margin is
+        ``s * radius``; the round loop re-imposes the wrap between rounds
+        from streamed wrap maps.
         """
         if self._wrap_rounds is ...:
             self._wrap_rounds = self._decide_wrap_rounds()
         return self._wrap_rounds
 
     def _decide_wrap_rounds(self) -> int | None:
-        if self.spec.boundary.kind != "periodic":
+        if self.spec.boundary.kind != "periodic" or len(self.devices) > 1:
             return None
         it = (
             self.spec.iterations if self.iterations is None
@@ -484,7 +499,7 @@ class BucketedDesign:
         )
         tuned = self.cache.design(
             self.spec, platform=self.platform, iterations=self.iterations,
-            device=self.device,
+            devices=self.devices, clip_to_devices=True,
         )
         return max(min(tuned.ranking[0].config.s, it), 1)
 
@@ -520,11 +535,11 @@ class BucketedDesign:
         t0 = time.perf_counter()
         cached = self.cache.get_or_build(
             bspec, platform=self.platform, iterations=self.iterations,
-            device=self.device, strict=self.strict,
+            devices=self.devices, strict=self.strict,
         )
         wrapped = build_bucket_runner(
             self.spec, bucket, cached.design.config,
-            iterations=self.iterations, device=self.device,
+            iterations=self.iterations, devices=self.devices,
             inner=cached.runner, wrap_rounds=self.wrap_rounds,
         )
         # a previously evicted bucket resumes its archived counters

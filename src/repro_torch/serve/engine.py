@@ -50,8 +50,11 @@ execution latency (count / total / mean / max seconds; staging to
 completion), requests lost to dispatch faults (whose tickets resolve via
 ``failures``), and, for bucketed designs, per-bucket counters.
 
-``device`` defaults to ``cuda`` and raises without it (pass
-``device="cpu"`` to serve through the kernels' plain versions).
+The device pool is ``devices`` (a device may repeat), or ``device``
+alone, or every visible CUDA device, and it raises without CUDA (pass
+``device="cpu"`` to serve through the kernels' plain versions).  The pool
+goes to the design cache, as in the reference: designs are ranked for it,
+and a multi-device design serves through the shard runner.
 """
 from __future__ import annotations
 
@@ -64,7 +67,7 @@ from typing import Mapping
 import numpy as np
 
 from repro_torch.core import analysis, numerics
-from repro_torch.kernels.ops import resolve_device
+from repro_torch.kernels.ops import resolve_pool
 from repro_torch.runtime.bucketing import ShapeBucketer
 from repro_torch.runtime.cache import (
     BucketedDesign,
@@ -178,6 +181,7 @@ class StencilServer:
         strict: bool = False,
         max_buckets: int | None = None,
         store_dir=None,
+        devices=None,
     ):
         assert max_batch >= 1
         assert max_inflight >= 1
@@ -188,7 +192,7 @@ class StencilServer:
             )
         self.max_batch = max_batch
         self.platform = platform
-        self.device = resolve_device(device)
+        self.devices = resolve_pool(devices, device)
         self.cache = cache if cache is not None else default_cache()
         self.warmup = warmup
         self.bucketing = bucketing
@@ -270,7 +274,7 @@ class StencilServer:
         if bucketer is not None:
             bucketed = self.cache.bucketed(
                 source_or_spec, bucketer=bucketer, platform=self.platform,
-                iterations=iterations, device=self.device,
+                iterations=iterations, devices=self.devices,
                 strict=self.strict, max_buckets=self.max_buckets,
             )
             entry = bucketed.runner_for(bucketed.spec.shape, count=0)
@@ -296,7 +300,7 @@ class StencilServer:
 
         cached = self.cache.get_or_build(
             source_or_spec, platform=self.platform, iterations=iterations,
-            device=self.device, strict=self.strict,
+            devices=self.devices, strict=self.strict,
         )
         ctr = DesignCounters(
             cache_hit=cached.hit,

@@ -26,7 +26,10 @@ from repro_torch.core.autotune import autotune, soda_baseline
 from repro_torch.core.model import ParallelismConfig
 from repro_torch.core.platform import DEFAULT_FPGA, DEFAULT_GPU, H100_PCIE, gpu_platform_for
 from repro_torch.kernels import ops, stencil
-from repro_torch.runtime.batching import build_batched_runner
+from repro_torch.runtime.batching import (
+    DegradedDesignWarning,
+    build_batched_runner,
+)
 
 
 def _port(ref_spec):
@@ -142,10 +145,14 @@ def test_batched_runner_paths_agree_bitwise():
     np.testing.assert_array_equal(k2.finalize(pending), k1(batch))
     with pytest.raises(ValueError, match="unknown input"):
         k1({**batch, "typo": batch["in_1"]})
-    with pytest.raises(NotImplementedError):
-        build_batched_runner(
+    # a multi-device config on a one-device pool degrades, as the
+    # reference's does: it warns and runs the single-device kernel
+    with pytest.warns(DegradedDesignWarning, match="needs 2 device"):
+        degraded = build_batched_runner(
             spec, ParallelismConfig("spatial_s", k=2), device="cpu"
         )
+    assert (degraded.degraded, degraded.n_devices) == (True, 1)
+    assert degraded.path == "single_pe"
 
 
 def test_soda_baseline_is_temporal():

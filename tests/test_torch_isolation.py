@@ -53,6 +53,7 @@ def test_port_imports_neither_jax_nor_repro():
         "repro_torch.core.analysis", "repro_torch.core.numerics",
         "repro_torch.runtime.bucketing", "repro_torch.runtime.cache",
         "repro_torch.serve", "repro_torch.serve.engine",
+        "repro_torch.core.distribute",
     } <= set(report["modules"])
 
 
