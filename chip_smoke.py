@@ -70,7 +70,31 @@ runs ten phases, each printing JSON lines:
                cards (``build=False``), JACOBI2D 9720x1024: the top five
                configurations of each and the best shard design, with
                their predictions; then ``autotune`` built on the pool
-               ``[cuda] * 4``, whose design must run the tile kernel.
+               ``[cuda] * 4``, whose design must run the tile kernel;
+ 11. cold_start two fresh subprocesses (``chip_smoke.py --cold-start-child``)
+               share one empty store directory under ``build/``, each
+               with a private, empty kernel build root; each serves
+               JACOBI2D 9720x1024, 16 iterations, through
+               ``StencilServer(device="cuda", max_batch=1, store_dir=...)``.
+               The cold side must rank and run ``nvcc``; the warm side
+               must rank nothing, compile nothing and load the kernel's
+               library from the store, with a bitwise equal result.  Each
+               side's time to first result (after imports) and the ratio
+               are printed, not gated;
+ 12. scheduler phase ``serve``'s 40 requests through ``StencilScheduler``
+               over the same server: every result bitwise equal to
+               ``serve()``'s, no drop; then the open-loop Poisson trace
+               of ``benchmarks/serving_latency.py`` (240 requests at 300
+               per second over 4 designs) against the flush baseline:
+               grids per second and p50/p99 latency of both, not gated;
+ 13. router    ``StencilRouter`` with 2 workers (``--device cuda``, both on
+               this card) over one fresh store: the second worker
+               registers with no ranking, no compile and the library from
+               the store; the 40 requests routed, bitwise equal to the
+               in-process server's; then the 40 again with the owner of
+               one design killed with requests in flight: each is handed
+               off and resolves bitwise equal, and ``close()`` drains and
+               reaps both workers.
 
 Then one JSON line lists every kernel with its launches, error and times,
 and the last line is ``{"ok": true, "device": {...}}``.  Any failure
@@ -81,6 +105,7 @@ from __future__ import annotations
 
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
@@ -118,6 +143,9 @@ DIST_CASES = [  # (stock kernel, shape) of phase distribute; 16 iterations
     ("heat3d_periodic", (9720, 32, 32)),   # 9720 = 4 x 2430: periodic fits
 ]
 DIST_POOL = 4
+# the cold-start replica's kernel: JACOBI2D at the paper's 9720x1024
+COLD_DSL = BOUNDARY_DSL.format(tag="COLDSTART", it=ITERATIONS,
+                               boundary="zero", r=9720, c=1024)
 SERVE_MODES = ["zero", "constant 25.0", "replicate", "periodic"]
 SERVE_LADDER = ((10240,), (1024, 1088))
 SERVE_SHAPES, SERVE_REPEATS = 5, 2
@@ -137,6 +165,72 @@ def emit(**fields) -> None:
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"chip_smoke: {what}")
+
+
+def cold_start_child(store_dir: str, build_root: str, out_npy: str,
+                     report_json: str) -> int:
+    """One serving replica of phase ``cold_start``, in a fresh process:
+    a store-backed server on the card, one request, one result.  Its
+    kernel build root is ``build_root`` (private and empty), so only the
+    store can spare it ``nvcc``."""
+    root = Path(__file__).resolve().parent
+    sys.path.insert(0, str(root / "src"))
+    import numpy as np
+
+    from repro_torch.core import dsl
+    from repro_torch.kernels import cuda_build, pipeline, stencil
+    from repro_torch.serve import StencilRequest, StencilServer
+
+    cuda_build.BUILD_ROOT = Path(build_root)
+    check(not cuda_build.BUILD_ROOT.exists(),
+          f"cold_start: build root {build_root} is not empty")
+    spec = dsl.parse(COLD_DSL)
+    rng = np.random.default_rng(42)
+    arrays = {n: rng.standard_normal(shape).astype(dt)
+              for n, (dt, shape) in spec.inputs.items()}
+    # where the warm side's time goes: the library's write and load
+    install = cuda_build.install_library
+    install_s = []
+
+    def timed_install(key, blob):
+        t = time.perf_counter()
+        try:
+            return install(key, blob)
+        finally:
+            install_s.append(time.perf_counter() - t)
+
+    cuda_build.install_library = timed_install
+
+    t0 = time.perf_counter()
+    srv = StencilServer(device="cuda", max_batch=1, store_dir=store_dir)
+    t1 = time.perf_counter()
+    srv.register("jacobi2d", spec)
+    t2 = time.perf_counter()
+    out = srv.serve([StencilRequest("jacobi2d", arrays)])[0]
+    t3 = time.perf_counter()
+
+    np.save(out_npy, out)
+    st = srv.stats()
+    Path(report_json).write_text(json.dumps({
+        "first_result_s": t3 - t0,
+        "server_s": t1 - t0,          # CUDA context, store open
+        "register_s": t2 - t1,        # ranking or store, kernel, warmup
+        "warmup_s": st["jacobi2d"]["warmup_time_s"],   # first dispatch
+        "install_s": sum(install_s),  # store blob -> build root -> dlopen
+        "library_bytes": sum(p.stat().st_size for p in
+                             Path(build_root).glob("*/libsasa.so")),
+        "serve_s": t3 - t2,
+        "autotune_calls": st["_cache"]["autotune_calls"],
+        "jit_builds": st["_cache"]["jit_builds"],
+        "store_hits": st["_cache"]["store_hits"],
+        "store": st["_store"],
+        "nvcc_compiles": cuda_build.build_many.compiles,
+        "launches": {"stencil_cuda": stencil.stencil_cuda.launches,
+                     "stencil_cuda_batched":
+                         pipeline.stencil_cuda_batched.launches},
+        "finite": bool(np.isfinite(out).all()),
+    }))
+    return 0
 
 
 def main() -> int:
@@ -550,6 +644,7 @@ def main() -> int:
          seconds=time.perf_counter() - t0)
     serve_launches = {"stencil_cuda": 0, "stencil_cuda_batched": 0}
     serve_err = 0.0
+    served = {}     # mode -> serve()'s results, held by phases 12 and 13
     for mode in SERVE_MODES:
         name = mode.split()[0]
         reqs = [StencilRequest(name, arrays) for _, arrays in traffic[mode]]
@@ -560,6 +655,7 @@ def main() -> int:
         t0 = time.perf_counter()
         outs = srv.serve(reqs)
         flush_s = time.perf_counter() - t0
+        served[mode] = outs
         launches = {"stencil_cuda": stencil.stencil_cuda.launches,
                     "stencil_cuda_batched": pipeline.stencil_cuda_batched.launches}
         check(sum(launches.values()) > 0, f"serve {mode}: no kernel launched")
@@ -756,6 +852,200 @@ def main() -> int:
          n_devices=run.n_devices, degraded=run.degraded,
          tile_kernel_launches=pool_launches)
 
+    # ---- 11. cold_start: two fresh replicas over one store ---------------
+    cold_dir = root / "build" / "cold_start"
+    shutil.rmtree(cold_dir, ignore_errors=True)
+    cold_dir.mkdir(parents=True)
+    sides = {}
+    for side in ("cold", "warm"):
+        out_npy, report = cold_dir / f"{side}.npy", cold_dir / f"{side}.json"
+        subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()),
+             "--cold-start-child", str(cold_dir / "store"),
+             str(cold_dir / f"kernels_{side}"), str(out_npy), str(report)],
+            check=True, timeout=600,
+        )
+        sides[side] = (np.load(out_npy), json.loads(report.read_text()))
+    (out_cold, cold), (out_warm, warm) = sides["cold"], sides["warm"]
+    cold_bitwise = bool(np.array_equal(out_cold, out_warm))
+    check(cold["autotune_calls"] >= 1 and cold["jit_builds"] >= 1,
+          f"cold_start: the cold side ranked {cold['autotune_calls']}x and "
+          f"compiled {cold['jit_builds']}x")
+    check(warm["autotune_calls"] == 0 and warm["jit_builds"] == 0
+          and warm["nvcc_compiles"] == 0,
+          f"cold_start: the warm side ranked {warm['autotune_calls']}x and "
+          f"compiled {warm['jit_builds']}x")
+    check(warm["store_hits"] >= 1 and warm["store"]["executable_hits"] >= 1,
+          f"cold_start: the warm side missed the store: {warm['store']}")
+    check(cold_bitwise and cold["finite"], "cold_start: warm result differs")
+    check(all(sum(x["launches"].values()) > 0 for x in (cold, warm)),
+          "cold_start: a side never launched the tile kernel")
+    emit(phase="cold_start", spec="JACOBI2D", shape=[9720, 1024],
+         iterations=ITERATIONS, cold=cold, warm=warm,
+         cold_over_warm=cold["first_result_s"] / warm["first_result_s"],
+         bitwise=cold_bitwise)
+
+    # ---- 12. scheduler: continuous batching over phase serve's server ----
+    from repro_torch.serve import StencilScheduler
+
+    trace = [(mode, StencilRequest(mode.split()[0], arrays), i)
+             for mode in SERVE_MODES
+             for i, (_, arrays) in enumerate(traffic[mode])]
+    torch.cuda.synchronize()
+    stencil.stencil_cuda.launches = 0
+    pipeline.stencil_cuda_batched.launches = 0
+    t0 = time.perf_counter()
+    with StencilScheduler(srv) as sched:
+        tickets = [sched.submit(req) for _, req, _ in trace]
+        sched.drain()
+    sched_s = time.perf_counter() - t0
+    sched_launches = {"stencil_cuda": stencil.stencil_cuda.launches,
+                      "stencil_cuda_batched": pipeline.stencil_cuda_batched.launches}
+    st = sched.stats()
+    check(all(t.done() and t.exception() is None for t in tickets)
+          and st["completed"] == len(trace) and st["failed"] == 0,
+          f"scheduler: dropped or failed requests: {st}")
+    sched_bitwise = all(np.array_equal(t.result(), served[mode][i])
+                        for t, (mode, _, i) in zip(tickets, trace))
+    check(sched_bitwise, "scheduler: differs from synchronous serve()")
+    check(sum(sched_launches.values()) > 0, "scheduler: no kernel launched")
+    emit(phase="scheduler", requests=len(trace), seconds=sched_s,
+         grids_per_s=len(trace) / sched_s,
+         dispatched_batches=st["dispatched_batches"],
+         deadline_misses=st["deadline_misses"], launches=sched_launches,
+         bitwise_vs_serve=sched_bitwise)
+
+    # the open-loop Poisson trace of benchmarks/serving_latency.py
+    lrng = np.random.default_rng(42)
+    lat_designs = {
+        "jac_s": stencils.jacobi2d(shape=(64, 32), iterations=4),
+        "jac_l": stencils.jacobi2d(shape=(96, 48), iterations=4),
+        "hot_s": stencils.hotspot(shape=(64, 32), iterations=4),
+        "hot_l": stencils.hotspot(shape=(96, 48), iterations=4),
+    }
+    names = sorted(lat_designs)
+    arrivals = np.cumsum(lrng.exponential(1.0 / 300.0, size=240))
+    lat_trace = []
+    for t_arr in arrivals:
+        name = names[int(lrng.integers(len(names)))]
+        lat_trace.append((float(t_arr), StencilRequest(name, {
+            k: lrng.standard_normal(shape).astype(dt)
+            for k, (dt, shape) in lat_designs[name].inputs.items()})))
+    lat_cache = DesignCache()
+
+    def lat_server():
+        server = StencilServer(device="cuda", max_batch=4, cache=lat_cache)
+        for name, sp in lat_designs.items():
+            server.register(name, sp)
+        return server
+
+    def pct(xs, q):
+        return float(np.percentile(np.asarray(xs), q)) * 1e3
+
+    fsrv, pending, flush_lat = lat_server(), {}, []
+    t0 = last = time.monotonic()
+    for arrive_s, req in lat_trace:
+        delay = t0 + arrive_s - time.monotonic()
+        if delay > 0:
+            time.sleep(delay)
+        pending[fsrv.submit(req)] = t0 + arrive_s
+        if time.monotonic() - last >= 0.1:
+            done = fsrv.flush()
+            now = last = time.monotonic()
+            flush_lat += [now - pending.pop(k) for k in done if k in pending]
+    done = fsrv.flush()
+    now = time.monotonic()
+    flush_lat += [now - pending.pop(k) for k in done if k in pending]
+    flush_span = now - t0
+    check(not pending and len(flush_lat) == len(lat_trace),
+          f"latency: the flush baseline lost {len(pending)} requests")
+    csrv, fired = lat_server(), []
+    with StencilScheduler(csrv) as lsched:
+        t0 = time.monotonic()
+        for arrive_s, req in lat_trace:
+            delay = t0 + arrive_s - time.monotonic()
+            if delay > 0:
+                time.sleep(delay)
+            fired.append((t0 + arrive_s, lsched.submit(req), req))
+        lsched.drain()
+        cont_span = time.monotonic() - t0
+    check(all(t.done() and t.exception() is None for _, t, _ in fired),
+          "latency: the scheduler dropped or failed requests")
+    cont_lat = [t.completed_at - due for due, t, _ in fired]
+    rsrv = lat_server()
+    lat_bitwise = all(np.array_equal(t.result(), rsrv.serve([req])[0])
+                      for _, t, req in fired[::5])
+    check(lat_bitwise, "latency: a scheduled result differs from serve()")
+    emit(phase="latency", requests=len(lat_trace), rate_hz=300.0,
+         designs=names, flush_interval_s=0.1,
+         flush_grids_per_s=len(lat_trace) / flush_span,
+         flush_p50_ms=pct(flush_lat, 50), flush_p99_ms=pct(flush_lat, 99),
+         continuous_grids_per_s=len(lat_trace) / cont_span,
+         continuous_p50_ms=pct(cont_lat, 50),
+         continuous_p99_ms=pct(cont_lat, 99),
+         continuous_batches=lsched.stats()["dispatched_batches"],
+         bitwise_vs_serve_sampled=len(fired[::5]))
+
+    # ---- 13. router: two workers on this card over one store -------------
+    from repro_torch.serve import StencilRouter
+
+    router_dir = root / "build" / "router_store"
+    shutil.rmtree(router_dir, ignore_errors=True)
+    ladder = ShapeBucketer(ladder=SERVE_LADDER)
+    t0 = time.perf_counter()
+    router = StencilRouter(router_dir, replicas=2, max_batch=4, warmup=True,
+                           device="cuda")
+    try:
+        spawn_s = time.perf_counter() - t0
+        for mode in SERVE_MODES:
+            router.register(mode.split()[0], serve_spec(mode, paper),
+                            bucketing=ladder)
+        register_s = time.perf_counter() - t0 - spawn_s
+        after_register = router.ping()
+        second = after_register["replica-1"]
+        check(second["cache"]["jit_builds"] == 0
+              and second["cache"]["autotune_calls"] == 0
+              and second["store"]["executable_hits"] >= 1,
+              f"router: the second worker did not start warm: {second}")
+        reqs = [req for _, req, _ in trace]
+        t0 = time.perf_counter()
+        outs = router.serve(reqs)
+        route_s = time.perf_counter() - t0
+        router_bitwise = all(np.array_equal(o, served[mode][i])
+                             for o, (mode, _, i) in zip(outs, trace))
+        check(router_bitwise, "router: differs from the in-process server")
+        before_kill = router.ping()
+        # kill the owner of one design with the trace in flight
+        futures = [router.submit(req) for req in reqs]
+        owner = router._route("zero")
+        with router._lock:
+            in_flight = sum(1 for _, rep in router._pending.values()
+                            if rep is owner)
+        owner.proc.kill()
+        handed = [f.result(timeout=600.0) for f in futures]
+        handoff_bitwise = all(np.array_equal(o, served[mode][i])
+                              for o, (mode, _, i) in zip(handed, trace))
+        check(not owner.healthy, "router: the killed worker was not detected")
+        check(in_flight >= 1, "router: nothing was in flight at the kill")
+        check(handoff_bitwise, "router: a handed-off result differs")
+        after_kill = router.ping()
+    finally:
+        router.close()
+    check(all(r.proc.poll() is not None for r in router._replicas),
+          "router: close() left a worker running")
+    emit(phase="router", replicas=2, device="cuda", requests=len(reqs),
+         spawn_s=spawn_s, register_s=register_s, route_s=route_s,
+         grids_per_s=len(reqs) / route_s, bitwise_vs_serve=router_bitwise,
+         per_replica={n: dict(completed=i["scheduler"]["completed"],
+                              launches=i["launches"], cache=i["cache"],
+                              store=i["store"])
+                      for n, i in before_kill.items()},
+         killed=owner.name, in_flight_at_kill=in_flight,
+         handoff_bitwise=handoff_bitwise,
+         survivor={n: dict(completed=i["scheduler"]["completed"],
+                           launches=i["launches"])
+                   for n, i in after_kill.items() if i["healthy"]})
+
     kernels = [
         dict(name="stencil_cuda", route="cuda",
              source="src/repro_torch/kernels/csrc/stencil_tile.cuh",
@@ -782,4 +1072,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--cold-start-child"]:
+        sys.exit(cold_start_child(*sys.argv[2:6]))
     sys.exit(main())

@@ -141,6 +141,8 @@ def autotune(
     device=None,
     build: bool = True,
     devices=None,
+    cache=None,
+    store=None,
 ) -> TunedDesign:
     """The SASA entry point: DSL text (or a spec) -> ranked design + runner.
 
@@ -149,8 +151,42 @@ def autotune(
     visible CUDA device; building without CUDA and without a pool raises
     (pass ``device="cpu"`` for the plain versions).  ``platform`` defaults
     to the data-sheet row of the pool's card, in a pool of its size.
+
+    Pass a :class:`repro_torch.runtime.DesignCache` as ``cache`` to
+    memoize the ranking and the runner across calls.  Pass a
+    :class:`repro_torch.runtime.DesignStore` (or a path) as ``store`` to
+    make that memoization persistent: a warm store skips the ranking and
+    the kernel build.  Without ``cache`` a store-backed cache is created;
+    with one, the store is attached to it (a cache bound to a *different*
+    store is refused).
     """
-    return _tune(source_or_spec, platform, iterations, device, devices, build)
+    if store is not None:
+        # imported here: the runtime package imports this module
+        from repro_torch.runtime.cache import DesignCache
+        from repro_torch.runtime.store import as_store
+
+        store = as_store(store)
+        if cache is None:
+            cache = DesignCache(store=store)
+        elif cache.store is None:
+            cache.store = store
+        elif cache.store is not store:
+            raise ValueError(
+                "autotune(store=...) conflicts with the cache's own store; "
+                "pass one or the other"
+            )
+    if cache is None:
+        return _tune(source_or_spec, platform, iterations, device, devices,
+                     build)
+    if not build:
+        return cache.design(source_or_spec, platform=platform,
+                            iterations=iterations, device=device,
+                            devices=devices)
+    cached = cache.get_or_build(source_or_spec, platform=platform,
+                                iterations=iterations, device=device,
+                                devices=devices)
+    d = cached.design
+    return dataclasses.replace(d, runner=_single_grid_runner(d.runner))
 
 
 def soda_baseline(

@@ -24,7 +24,13 @@ template sources in ``csrc/`` and the flags, under
 ``build/repro_torch_kernels/<key>/`` at the root of the checkout.  Grid
 shape, tile, halo and fusion depth are launch arguments, so one build
 serves every shape and depth of a spec's structure.  :func:`build_many`
-starts one ``nvcc`` per missing library, all at once.
+starts one ``nvcc`` per missing library, all at once, and counts each
+compile on ``build_many.compiles``.
+
+The built library is also what the persistent design store carries
+(:mod:`repro_torch.runtime.store`, tier ``cuda_so``): :func:`export_library`
+reads it, and :func:`install_library` writes a stored blob into the build
+directory and loads it, so :func:`get_kernel` finds it without ``nvcc``.
 """
 from __future__ import annotations
 
@@ -311,6 +317,7 @@ def build_many(specs, ptxas_info: bool = False) -> list[KernelLib]:
         for key, (proc, tmp, so) in jobs.items():
             out, _ = proc.communicate()
             logs[key] = out
+            build_many.compiles += 1
             if proc.returncode != 0:
                 failed.append(f"[{key}] nvcc exited {proc.returncode}:\n{out}")
             else:
@@ -329,7 +336,48 @@ def build_many(specs, ptxas_info: bool = False) -> list[KernelLib]:
         return libs
 
 
+build_many.compiles = 0
+
+
 def get_kernel(spec: StencilSpec) -> KernelLib:
     """The loaded kernel for ``spec``, built at first use."""
     lib = _BY_SPEC.get(spec)
     return lib if lib is not None else build_many([spec])[0]
+
+
+def is_loaded(key: str) -> bool:
+    """Whether this process has loaded the library of kernel key ``key``."""
+    return key in _LOADED
+
+
+def export_library(spec: StencilSpec) -> tuple[str, bytes]:
+    """``(kernel key, bytes of libsasa.so)`` for ``spec``, built first
+    where missing."""
+    lib = get_kernel(spec)
+    return lib.key, lib.path.read_bytes()
+
+
+def install_library(key: str, blob: bytes) -> KernelLib:
+    """Write a library built elsewhere into ``BUILD_ROOT/<key>/`` and load
+    it as the kernel of key ``key``; no ``nvcc`` runs.
+
+    The write is atomic (tmp file + ``os.replace``), as a build's is.  A
+    blob the dynamic loader refuses is removed again and raises
+    :class:`OSError`, so a later :func:`build_many` rebuilds it.
+    """
+    with _LOCK:
+        if key in _LOADED:
+            return _LOADED[key]
+        d = BUILD_ROOT / key
+        d.mkdir(parents=True, exist_ok=True)
+        so = d / "libsasa.so"
+        tmp = d / f"libsasa.{os.getpid()}.so"
+        tmp.write_bytes(blob)
+        os.replace(tmp, so)
+        try:
+            lib = KernelLib(so, key)
+        except (OSError, AttributeError) as e:
+            so.unlink(missing_ok=True)
+            raise OSError(f"kernel library {key} does not load: {e}") from e
+        _LOADED[key] = lib
+        return lib

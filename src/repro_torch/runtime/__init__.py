@@ -9,7 +9,9 @@ one logical kernel registration serve heterogeneous grid shapes from a
 small ladder of padded bucket designs, under any boundary mode (streamed
 mask, halo-index maps, or host-streamed periodic wrap margins).
 :mod:`repro_torch.serve.engine` builds the request-facing server on these
-pieces.  The persistent design store is not ported yet.
+pieces.  ``DesignStore`` persists rankings, the CUDA kernel's built
+library and serving telemetry across processes
+(:mod:`repro_torch.runtime.store`).
 """
 from repro_torch.runtime.batching import (
     DegradedDesignWarning,
@@ -47,6 +49,13 @@ from repro_torch.runtime.cache import (
     spec_fingerprint,
     structural_fingerprint,
 )
+from repro_torch.runtime.store import (
+    DesignStore,
+    StoreStats,
+    environment_tag,
+    merge_counters,
+    subtract_counters,
+)
 
 __all__ = [
     "DegradedDesignWarning",
@@ -79,4 +88,9 @@ __all__ = [
     "default_cache",
     "spec_fingerprint",
     "structural_fingerprint",
+    "DesignStore",
+    "StoreStats",
+    "environment_tag",
+    "merge_counters",
+    "subtract_counters",
 ]

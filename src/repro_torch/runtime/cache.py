@@ -22,9 +22,12 @@ device pool is the caller's (``devices=``, a device may repeat; or
 runner keys hold the pool and the device count a runner actually uses, so
 a runner built degraded on a small pool is rebuilt when the pool grows.
 
-The store-backed parts of the reference (``store=``, telemetry read and
-written through disk) wait for the persistence slice and raise
-:class:`NotImplementedError`.
+With a :class:`repro_torch.runtime.store.DesignStore` attached
+(``DesignCache(store=...)``), both levels read through disk on a miss and
+write through on a build: rankings are persisted whole, and a runner that
+launches the CUDA tile kernel persists the kernel's ``nvcc``-built library
+at its first dispatch -- so a fresh process pointed at a warm store serves
+its first result without ranking or compiling anything.
 """
 from __future__ import annotations
 
@@ -34,7 +37,7 @@ import hashlib
 import time
 from typing import Mapping, Sequence
 
-from repro_torch.core import analysis, dsl
+from repro_torch.core import analysis, dsl, numerics
 from repro_torch.core.analysis import Diagnostic, require_bucketable
 from repro_torch.core.autotune import (
     TunedDesign,
@@ -44,6 +47,7 @@ from repro_torch.core.autotune import (
 )
 from repro_torch.core.model import ParallelismConfig
 from repro_torch.core.spec import StencilSpec
+from repro_torch.kernels import cuda_build
 from repro_torch.kernels.ops import resolve_pool
 from repro_torch.runtime.batching import (
     build_batched_runner,
@@ -51,12 +55,22 @@ from repro_torch.runtime.batching import (
     degraded_message,
     devices_used,
     is_degraded,
+    validate_batch,
 )
 from repro_torch.runtime.bucketing import (
     ShapeBucketer,
     bucket_spec,
     padded_request_shape,
 )
+from repro_torch.runtime.store import (
+    AOT_KIND,
+    DesignStore,
+    as_store,
+    design_key,
+    runner_key,
+    subtract_counters,
+)
+
 
 def structural_fingerprint(spec: StencilSpec) -> str:
     """Content hash of everything about a spec *except* its grid shape.
@@ -97,11 +111,18 @@ def _pool_key(pool) -> tuple[str, ...]:
     return tuple(str(d) for d in pool)
 
 
+def _runs_tile_kernel(run) -> bool:
+    """Whether a runner launches the CUDA tile kernel, and so has a
+    library for the store's executable tier."""
+    return run.backend == "cuda" and run.path in ("single_pe", "tile_pipeline")
+
+
 @dataclasses.dataclass
 class KeyStats:
     hits: int = 0
     misses: int = 0
     build_time_s: float = 0.0
+    store_hits: int = 0     # misses served warm from the persistent store
 
 
 @dataclasses.dataclass
@@ -128,30 +149,82 @@ class DesignCache:
     most-recently-used, and an insert past the cap evicts the
     least-recently-hit runner (``runner_evictions`` counts them; per-key
     hit/miss stats survive, so an evict-then-rehit shows up as a rebuild
-    miss on the same key).  ``autotune_calls`` counts design-space
-    enumerations actually run.  ``store=`` (the persistent design store)
-    is not ported yet and raises.
+    miss on the same key).
+
+    ``store`` (a :class:`repro_torch.runtime.store.DesignStore` or a path)
+    makes the cache **persistent**: rankings are read through from and
+    written through to disk, and a runner that launches the CUDA tile
+    kernel loads the kernel's library from the store at its first
+    dispatch, or builds it and writes it through.  ``autotune_calls``
+    counts design-space enumerations actually run and ``jit_builds``
+    counts ``nvcc`` compiles actually run; both stay 0 on a fully warm
+    path.  An LRU-evicted runner rebuilds from the store.
     """
 
-    def __init__(self, max_designs: int | None = None, store=None):
-        if store is not None:
-            raise NotImplementedError(
-                "the persistent design store is not ported yet; use an "
-                "in-process DesignCache"
-            )
+    def __init__(
+        self,
+        max_designs: int | None = None,
+        store: "DesignStore | str | None" = None,
+    ):
         if max_designs is not None and max_designs < 1:
             raise ValueError(
                 f"max_designs must be >= 1, got {max_designs}"
             )
         self.max_designs = max_designs
+        self.store = as_store(store)
         self.runner_evictions = 0
-        self.autotune_calls = 0
+        self.autotune_calls = 0    # design-space enumerations actually run
+        self.jit_builds = 0        # nvcc compiles actually run
         self._designs: dict[tuple, TunedDesign] = {}
         self._runners: "collections.OrderedDict[tuple, tuple[object, float]]" = (
             collections.OrderedDict()
         )
         self._failed: dict[tuple, str] = {}    # infeasible-config memo
         self._stats: dict[tuple, KeyStats] = {}
+        # restored-telemetry baselines: flush_telemetry persists only the
+        # progress made by THIS cache (current - baseline), so restored
+        # history is never written back and double-counted by the store's
+        # multi-writer merge
+        self._tel_baseline: dict[tuple, dict] = {}
+        self._tel_buckets: dict[tuple, dict] = {}
+        if self.store is not None:
+            self._restore_telemetry()
+
+    def _restore_telemetry(self) -> None:
+        """Seed per-key counters from the store so a restart resumes its
+        telemetry."""
+        tel = self.store.get_telemetry()
+        if tel is None:
+            return
+        fields = {f.name for f in dataclasses.fields(KeyStats)}
+        for key, d in tel.get("keys", {}).items():
+            try:
+                self._stats[key] = KeyStats(
+                    **{k: v for k, v in d.items() if k in fields}
+                )
+            except (TypeError, ValueError):
+                continue   # stale telemetry shape: skip, don't crash
+            self._tel_baseline[key] = dataclasses.asdict(self._stats[key])
+
+    def flush_telemetry(self, buckets: dict | None = None) -> None:
+        """Write the per-key counters (and optionally per-bucket counters)
+        through to the attached store; no-op without one.
+
+        What is persisted is this writer's contribution only: per-key
+        deltas against the restored baselines, plus every per-bucket dict
+        any registration has handed in so far (bucket callers subtract
+        their own baselines).  The store merges writers on read.
+        """
+        if self.store is None:
+            return
+        if buckets:
+            self._tel_buckets.update(buckets)
+        keys = {}
+        for k, s in self._stats.items():
+            d = dataclasses.asdict(s)
+            base = self._tel_baseline.get(k)
+            keys[k] = subtract_counters(d, base) if base else d
+        self.store.put_telemetry(keys, self._tel_buckets)
 
     # ------------------------------------------------------------------
     # design level (ranking only, no runner build)
@@ -172,18 +245,39 @@ class DesignCache:
         H100 row without a CUDA device) in a pool of its size, as
         :func:`autotune` picks it; an explicit platform is clipped to the
         pool only with ``clip_to_devices`` (a runner will be built).
+
+        With a store attached the miss path reads through disk before
+        ranking (a ranking written by any process sharing the store is
+        rehydrated, its certified bound recomputed), and a fresh ranking
+        is written through for the next replica.
         """
         spec = _as_spec(source_or_spec)
         pool = ranking_pool(device, devices)
         plat = _platform_for(pool, platform, clip=clip_to_devices)
-        key = (
-            "design", structural_fingerprint(spec), tuple(spec.shape),
-            plat, iterations,
-        )
+        structural = structural_fingerprint(spec)
+        key = ("design", structural, tuple(spec.shape), plat, iterations)
         st = self._stats.setdefault(key, KeyStats())
         if key in self._designs:
             st.hits += 1
             return self._designs[key]
+        skey = None
+        if self.store is not None:
+            skey = design_key(structural, spec.shape, plat, iterations)
+            got = self.store.get_design(skey)
+            if got is not None:
+                stored_spec, ranking = got
+                # the store keeps spec + ranking only; the certified bound
+                # is cheap static analysis, recomputed on a warm hit
+                tuned = TunedDesign(
+                    stored_spec, ranking[0], list(ranking), None,
+                    diagnostics=(numerics.bound_diagnostic(
+                        stored_spec, iterations=iterations,
+                    ),),
+                )
+                st.store_hits += 1
+                self._designs[key] = tuned
+                self.flush_telemetry()
+                return tuned
         st.misses += 1
         self.autotune_calls += 1
         t0 = time.perf_counter()
@@ -193,6 +287,9 @@ class DesignCache:
         )
         st.build_time_s += time.perf_counter() - t0
         self._designs[key] = tuned
+        if skey is not None:
+            self.store.put_design(skey, tuned.spec, tuned.ranking)
+            self.flush_telemetry()
         return tuned
 
     # ------------------------------------------------------------------
@@ -244,6 +341,11 @@ class DesignCache:
         except ValueError as e:
             self._failed[key] = str(e)
             raise
+        if self.store is not None and _runs_tile_kernel(run):
+            run = self._attach_store(run, runner_key(
+                structural_fingerprint(spec), spec.shape, cfg,
+                _pool_key(pool), n_used, iterations,
+            ), len(pool))
         dt = time.perf_counter() - t0
         st.build_time_s += dt
         self._runners[key] = (run, dt)
@@ -252,6 +354,59 @@ class DesignCache:
                 self._runners.popitem(last=False)   # least recently hit
                 self.runner_evictions += 1
         return run
+
+    def _attach_store(self, run, store_key: str, pool_size: int):
+        """The store's executable tier over a kernel runner's dispatch.
+
+        At the runner's first dispatch, the library of the spec it
+        launches (``run.spec``: for a bucket design the streamed bucket
+        spec with its halo maps) is made ready: if this process has not
+        loaded it, it is loaded from the store, or else built -- counting
+        ``jit_builds`` -- and written through for the next replica.  A
+        library this process already holds is written through when the
+        store lacks this runner's entry.  Results are bitwise identical
+        either way: the library is the program ``nvcc`` would build.
+        """
+        store, spec, inner_dispatch = self.store, run.spec, run.dispatch
+        prepared = []
+
+        def prepare() -> None:
+            key = cuda_build.kernel_key(spec)
+            if cuda_build.is_loaded(key):
+                if store.has_executable(store_key, key):
+                    return
+            elif store.get_executable(
+                store_key, key, run.device, pool_size
+            ) is not None:
+                return
+            else:
+                before = cuda_build.build_many.compiles
+                cuda_build.build_many([spec])
+                self.jit_builds += cuda_build.build_many.compiles - before
+            _, blob = cuda_build.export_library(spec)
+            store.put_executable(
+                store_key, key, AOT_KIND, blob, run.device, pool_size
+            )
+
+        def dispatch(staged):
+            if not prepared:
+                prepare()
+                prepared.append(True)
+            return inner_dispatch(staged)
+
+        def persistent_run(arrays):
+            validate_batch(spec, arrays)
+            return run.finalize(dispatch(run.stage(arrays)))
+
+        for attr in (
+            "spec", "cfg", "iterations", "path", "backend", "device",
+            "devices", "n_devices", "devices_requested", "degraded", "tile",
+            "stage", "ready", "finalize",
+        ):
+            setattr(persistent_run, attr, getattr(run, attr))
+        persistent_run.dispatch = dispatch
+        persistent_run.store_key = store_key
+        return persistent_run
 
     # ------------------------------------------------------------------
     # combined entry point (what serving calls)
@@ -390,14 +545,22 @@ class DesignCache:
     def __len__(self) -> int:
         return len(self._designs) + len(self._runners)
 
+    @property
+    def store_hits(self) -> int:
+        return sum(s.store_hits for s in self._stats.values())
+
     def clear(self) -> None:
-        """Drop the in-memory memoization."""
+        """Drop the in-memory memoization (the persistent store, if any,
+        is untouched: a cleared cache re-warms from disk)."""
         self._designs.clear()
         self._runners.clear()
         self._failed.clear()
         self._stats.clear()
+        self._tel_baseline.clear()
+        self._tel_buckets.clear()
         self.runner_evictions = 0
         self.autotune_calls = 0
+        self.jit_builds = 0
 
 
 # --------------------------------------------------------------------------
@@ -469,8 +632,33 @@ class BucketedDesign:
             collections.OrderedDict()
         )
         self._evicted_stats: dict[tuple[int, ...], BucketStats] = {}
+        # restored per-bucket baselines: persist_stats() writes deltas
+        # against these, so restored history isn't double-counted
+        self._tel_baseline: dict[tuple[int, ...], dict] = {}
         self.evictions: int = 0
         self._wrap_rounds = ...   # undecided until first routing
+        if cache.store is not None:
+            # restart continuity: persisted per-bucket counters land in the
+            # archived-stats map, so the first (re)build of each bucket
+            # resumes them through the eviction-resume path
+            tel = cache.store.get_telemetry()
+            fields = {f.name for f in dataclasses.fields(BucketStats)}
+            for bkey, d in (tel or {}).get("buckets", {}).items():
+                try:
+                    structural, bucket = bkey
+                except (TypeError, ValueError):
+                    continue
+                if structural != self.structural:
+                    continue
+                try:
+                    self._evicted_stats[tuple(bucket)] = BucketStats(
+                        **{k: v for k, v in d.items() if k in fields}
+                    )
+                except (TypeError, ValueError):
+                    continue
+                self._tel_baseline[tuple(bucket)] = dataclasses.asdict(
+                    self._evicted_stats[tuple(bucket)]
+                )
 
     @property
     def wrap_rounds(self) -> int | None:
@@ -557,7 +745,26 @@ class BucketedDesign:
                 old_bucket, old = self._entries.popitem(last=False)
                 self._evicted_stats[old_bucket] = old.stats
                 self.evictions += 1
+        self.persist_stats()
         return entry
+
+    def persist_stats(self) -> None:
+        """Write this registration's per-bucket counters through to the
+        cache's store (no-op without one); restarts restore them through
+        the archived-stats map.  Restored counters are subtracted back out
+        before writing, so only this registration's progress lands in its
+        writer's telemetry file."""
+        if self.cache.store is None:
+            return
+        live = {b: e.stats.as_dict() for b, e in self._entries.items()}
+        live.update({b: s.as_dict() for b, s in self._evicted_stats.items()})
+        buckets = {}
+        for b, d in live.items():
+            base = self._tel_baseline.get(b)
+            buckets[(self.structural, b)] = (
+                subtract_counters(d, base) if base else d
+            )
+        self.cache.flush_telemetry(buckets)
 
     def run(self, shape, arrays):
         """Convenience: serve one uniform-shape batch through its bucket."""

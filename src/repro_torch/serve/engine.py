@@ -1,8 +1,7 @@
 """Stencil serving engine: micro-batched, bucketed, async-dispatched
 execution of cached designs on one device.
 
-PyTorch port of ``repro.serve.engine`` without the persistent store and
-without the LM engine re-exports.  A server owns a
+PyTorch port of ``repro.serve.engine`` without the LM engine re-exports.  A server owns a
 :class:`repro_torch.runtime.DesignCache`; clients register stencil
 designs (DSL text or :class:`StencilSpec`) and then submit grids:
 
@@ -164,8 +163,12 @@ class StencilServer:
     ``async_dispatch`` + ``max_inflight`` control the double-buffered
     dispatch loop; ``strict`` refuses registrations carrying
     error-severity static-analysis findings
-    (:mod:`repro_torch.core.analysis`).  ``store_dir`` (the persistent
-    design store) is not ported yet and raises.
+    (:mod:`repro_torch.core.analysis`).  ``store_dir`` points the server
+    at a persistent :class:`repro_torch.runtime.DesignStore` (the
+    FPGA-bitstream analogue on disk): rankings, the CUDA kernel's built
+    library and serving telemetry survive the process, so a restarted
+    replica -- or a fresh one sharing the directory -- reaches its first
+    bitwise-identical result without ranking or running ``nvcc``.
     """
 
     def __init__(
@@ -186,10 +189,14 @@ class StencilServer:
         assert max_batch >= 1
         assert max_inflight >= 1
         if store_dir is not None:
-            raise NotImplementedError(
-                "StencilServer(store_dir=...): the persistent design store "
-                "is not ported yet"
-            )
+            # a persistent replica owns a store-backed cache; passing a
+            # cache too would be ambiguous about which memoization it owns
+            if cache is not None:
+                raise ValueError(
+                    "pass either cache= (optionally DesignCache(store=...)) "
+                    "or store_dir=, not both"
+                )
+            cache = DesignCache(store=store_dir)
         self.max_batch = max_batch
         self.platform = platform
         self.devices = resolve_pool(devices, device)
@@ -479,7 +486,19 @@ class StencilServer:
         while inflight:
             self._resolve(inflight.popleft(), results)
         self.completed.update(results)
+        self.persist_telemetry()
         return results
+
+    def persist_telemetry(self) -> None:
+        """Write serving counters through to the cache's persistent store
+        (no-op without one), so a restarted replica resumes its per-key
+        and per-bucket statistics."""
+        if self.cache.store is None:
+            return
+        for reg in self._designs.values():
+            if reg.bucketed:
+                reg.cached.persist_stats()
+        self.cache.flush_telemetry()
 
     def serve(self, requests: list[StencilRequest]) -> list[np.ndarray]:
         """submit() + flush(), preserving request order; claims only THIS
@@ -606,5 +625,9 @@ class StencilServer:
             "entries": len(self.cache),
             "runner_evictions": self.cache.runner_evictions,
             "autotune_calls": self.cache.autotune_calls,
+            "jit_builds": self.cache.jit_builds,
+            "store_hits": self.cache.store_hits,
         }
+        if self.cache.store is not None:
+            out["_store"] = self.cache.store.stats.as_dict()
         return out

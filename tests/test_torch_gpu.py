@@ -116,3 +116,42 @@ def test_streamed_kernels_match_plain_on_card(cuda_device, kind):
                 scale = max(1.0, float(want.abs().max()))
                 assert float((got - want).abs().max()) <= RTOL["float32"] * scale
                 assert torch.equal(both[b], got), (kind, s, tile, b)
+
+
+@pytest.mark.gpu
+def test_store_round_trip_on_card(cuda_device, tmp_path, monkeypatch):
+    """The store's executable tier in one process with private build
+    roots: cold runs ``nvcc`` once and writes one executable entry; a warm
+    cache, seeing an empty build root and no loaded library (as a fresh
+    process does), builds nothing, loads the library from the store and
+    serves a bitwise equal result."""
+    from repro_torch.configs import stencils as stock
+    from repro_torch.kernels import cuda_build
+    from repro_torch.runtime import DesignCache, environment_tag
+
+    def fresh_process(build_root):
+        monkeypatch.setattr(cuda_build, "BUILD_ROOT", build_root)
+        monkeypatch.setattr(cuda_build, "_LOADED", {})
+        monkeypatch.setattr(cuda_build, "_BY_SPEC", {})
+
+    spec = stock.jacobi2d(shape=(200, 150), iterations=4)
+    rng = np.random.default_rng(15)
+    arrays = {"in_1": rng.standard_normal((2, 200, 150)).astype(np.float32)}
+    store = tmp_path / "store"
+
+    fresh_process(tmp_path / "kernels_cold")
+    cold = DesignCache(store=str(store))
+    out_cold = cold.get_or_build(spec, device=cuda_device).runner(arrays)
+    assert cold.autotune_calls == 1 and cold.jit_builds == 1
+    entries = list((store / environment_tag() / "executables").glob("*.pkl"))
+    assert len(entries) == 1
+
+    fresh_process(tmp_path / "kernels_warm")
+    warm = DesignCache(store=str(store))
+    cached = warm.get_or_build(spec, device=cuda_device)
+    out_warm = cached.runner(arrays)
+    assert warm.autotune_calls == 0 and warm.jit_builds == 0
+    assert warm.store.stats.executable_hits == 1
+    key = cuda_build.kernel_key(cached.design.spec)
+    assert (tmp_path / "kernels_warm" / key / "libsasa.so").is_file()
+    np.testing.assert_array_equal(out_cold, out_warm)

@@ -336,11 +336,12 @@ def test_stats_finite_and_cache_hits():
     assert s2.register("idle", text).counters.cache_hit
 
 
-def test_server_needs_cuda_unless_asked_for_the_cpu():
-    with pytest.raises(NotImplementedError, match="store"):
-        StencilServer(device="cpu", store_dir="somewhere")
-    with pytest.raises(NotImplementedError, match="store"):
-        DesignCache(store="somewhere")
+def test_server_needs_cuda_unless_asked_for_the_cpu(tmp_path):
+    store = str(tmp_path / "store")
+    assert StencilServer(device="cpu", store_dir=store).cache.store is not None
+    assert DesignCache(store=store).store.root == tmp_path / "store"
+    with pytest.raises(ValueError, match="not both"):
+        StencilServer(device="cpu", cache=DesignCache(), store_dir=store)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             StencilServer()
