@@ -6,7 +6,7 @@ Run from the root of a checkout, on a machine with one CUDA card::
 
 It builds the CUDA tile kernels from ``src/repro_torch/kernels/csrc`` into
 ``build/repro_torch_kernels/`` (one ``nvcc`` per kernel, all at once), then
-runs ten phases, each printing JSON lines:
+runs fourteen phases, each printing JSON lines:
 
   1. device    the card's name and power limit (``nvidia-smi``), versions;
   2. build     kernels built and seconds;
@@ -94,7 +94,28 @@ runs ten phases, each printing JSON lines:
                in-process server's; then the 40 again with the owner of
                one design killed with requests in flight: each is handed
                off and resolves bitwise equal, and ``close()`` drains and
-               reaps both workers.
+               reaps both workers;
+ 14. lm_serve  the LM substrate: ``repro_torch.serve.lm.ServeEngine`` on
+               granite-3-2b at full width and depth (40 layers, d_model
+               2048, vocab 49155; 2.53 B fp32 masters initialised on the
+               card from a seeded generator).  Gates: (a) with float32
+               activations, a 16-token request's 4 greedy tokens equal
+               re-running prefill on the grown prompt (the smallest top-2
+               logit margin is printed); (b) at depth 2, the prefill logits
+               and 16 decode steps' logits on the card within
+               ``LM_CPU_TOL`` of the port's CPU path on the same weights,
+               in float32 and in bf16, the caches in the activations'
+               dtype; (c) the traffic (8 requests, prompts of 64-512
+               tokens from seed 2022, 64 new tokens, batch 8, cache 1024,
+               bf16) twice, bitwise equal, tokens in the vocabulary, and
+               the logits of a full-depth prefill and of 4 decode steps at
+               batch 8 (``Model.prefill``/``init_cache``/``decode_step``)
+               finite.
+               It prints init seconds, parameter bytes, peak memory,
+               prefill ms, decode ms per step beside the byte bound of
+               re-reading the masters, tokens/s and a profile of 4 decode
+               steps.  The LM path launches no stencil kernel, and the
+               phase checks that K1/K2's counts do not move.
 
 Then one JSON line lists every kernel with its launches, error and times,
 and the last line is ``{"ok": true, "device": {...}}``.  Any failure
@@ -157,6 +178,28 @@ input bfloat16: x(16, 24)
 output bfloat16: y(0,0) = (x(0,1) + x(1,0) + x(0,0) + x(0,-1) + x(-1,0)) / 5
 """
 
+# phase lm_serve: granite-3-2b at full width and depth, random weights from
+# a seeded generator on the card, and the traffic below in the config's
+# bf16; gate (b) holds the card's prefill logits and LM_DECODE_STEPS decode
+# steps' logits at depth 2 to the port's CPU path on the same weights and
+# tokens, in float32 and in bf16, within LM_CPU_TOL: ``max_rel`` is
+# max|card - cpu| / max|cpu|, ``rms_rel`` ||card - cpu|| / ||cpu||.  The
+# bounds lie between the largest sound reading and the smallest reading
+# with a fault injected, over 5 token sets of tools/lm_gate_readings.py on
+# an H100 (PERF.md): float32 read <= 2.1e-6, with TF32 products >= 9.7e-4;
+# bf16 read rms <= 8.2e-3 (prefill) and 7.1e-3 (decode), with attention
+# and norms left in bf16 >= 1.58e-2 and 1.31e-2.
+LM_ARCH = "granite_3_2b"
+LM_SEED = 2022
+LM_TRAFFIC = dict(batch_size=8, cache_len=1024, requests=8, prompt_min=64,
+                  prompt_max=512, max_new_tokens=64)
+LM_DECODE_STEPS = 16
+LM_CPU_TOL = {
+    "float32": dict(prefill_max_rel=1e-4, decode_max_rel=1e-4),
+    "bfloat16": dict(prefill_rms_rel=1.1e-2, decode_rms_rel=1.0e-2),
+}
+H100_BF16_FLOPS = 989e12   # NVIDIA data sheet, dense
+
 
 def emit(**fields) -> None:
     print(json.dumps(fields), flush=True)
@@ -165,6 +208,210 @@ def emit(**fields) -> None:
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"chip_smoke: {what}")
+
+
+def lm_logits(model, params, tokens, steps):
+    """Prefill logits of ``tokens`` (B,S) and the logits of ``steps`` decode
+    steps from an empty cache fed ``tokens[:, :steps]``, as float32 on the
+    CPU, with the dtype of the prefill caches' k."""
+    import torch
+
+    pre, caches = model.prefill(params, {"tokens": tokens})
+    cache_dtype = str(caches[0]["k"].dtype).removeprefix("torch.")
+    B = tokens.shape[0]
+    caches = model.init_cache(B, steps)
+    dec = []
+    for t in range(steps):
+        pos = torch.full((B,), t, dtype=torch.int32, device=model.device)
+        logits, caches = model.decode_step(params, tokens[:, t:t + 1],
+                                           caches, pos)
+        dec.append(logits)
+    return pre.float().cpu(), torch.stack(dec, 1).float().cpu(), cache_dtype
+
+
+def logit_errs(got, ref) -> dict:
+    """``max_rel`` (max|got - ref| / max|ref|) and ``rms_rel``
+    (||got - ref|| / ||ref||) of the prefill and of the decode logits of two
+    :func:`lm_logits` results."""
+    out = {}
+    for name, g, r in zip(("prefill", "decode"), got, ref):
+        d = (g - r).abs()
+        out[f"{name}_max_rel"] = float(d.max() / r.abs().max())
+        out[f"{name}_rms_rel"] = float(d.norm() / r.norm())
+    return out
+
+
+def lm_vs_cpu(dev, cfg, params, tokens, steps) -> dict:
+    """``cfg``'s model on ``dev`` against the port's CPU path on a copy of
+    ``params``: :func:`logit_errs`, whether the card's logits are finite,
+    and the card's cache dtype."""
+    import copy
+
+    import torch
+
+    from repro_torch.models.model_zoo import build_model
+
+    card = lm_logits(build_model(cfg, device=dev), params, tokens, steps)
+    cpu = lm_logits(build_model(cfg, device="cpu"),
+                    copy.deepcopy(params).to("cpu"), tokens, steps)
+    return dict(finite=bool(torch.isfinite(card[0]).all()
+                            and torch.isfinite(card[1]).all()),
+                cache_dtype=card[2], **logit_errs(card[:2], cpu[:2]))
+
+
+def lm_serve(dev, cfg, traffic: dict, hbm_bw: float, kernel_launches) -> dict:
+    """Phase ``lm_serve``: ``ServeEngine`` on ``cfg`` at its full size with
+    random weights initialised on ``dev``; gates (a)-(c) raise."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.models import layers as L
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.serve.lm import Request, ServeEngine
+
+    launches_before = kernel_launches()
+    rng = np.random.default_rng(LM_SEED)
+    model = build_model(cfg, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(LM_SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    param_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    check(all(p.dtype == torch.float32 for p in params.parameters()),
+          "lm_serve: the masters are not float32")
+
+    def top2_margin(logits) -> float:
+        top = torch.topk(logits.float(), 2, dim=-1).values
+        return float((top[..., 0] - top[..., 1]).min())
+
+    # (a) decode equals repeated prefill, float32 activations, full size
+    cfg32 = dataclasses.replace(cfg, act_dtype="float32")
+    model32 = build_model(cfg32, device=dev)
+    prompt = rng.integers(0, cfg.vocab, 16).astype(np.int32)
+    got = ServeEngine(model32, params, batch_size=1, cache_len=32).generate(
+        [Request(prompt=prompt, max_new_tokens=4)])[0]
+    seq, margins = list(prompt), []
+    for _ in range(4):
+        logits, _ = model32.prefill(params, {"tokens": np.asarray([seq])})
+        margins.append(top2_margin(logits))
+        seq.append(int(torch.argmax(logits[0])))
+    gate_a = [int(t) for t in got] == seq[len(prompt):]
+    check(gate_a, f"lm_serve (a): decode gave {list(got)}, repeated "
+                  f"prefill {seq[len(prompt):]} (top-2 margins {margins})")
+
+    # (b) the card against the port's CPU path on the same weights, depth 2,
+    # in float32 and in the config's dtype: prefill and decode logits
+    cut = L.ParamTree({"embed": params["embed"],
+                       "layers": [params["layers"][i] for i in range(2)],
+                       "ln_f": params["ln_f"]})
+    tokens = rng.integers(0, cfg.vocab, (2, 64)).astype(np.int32)
+    gate_b = {}
+    for dt in dict.fromkeys(("float32", cfg.act_dtype)):
+        got_b = lm_vs_cpu(dev, dataclasses.replace(cfg, n_layers=2,
+                                                  act_dtype=dt),
+                          cut, tokens, LM_DECODE_STEPS)
+        tol = LM_CPU_TOL[dt]
+        check(got_b["finite"] and got_b["cache_dtype"] == dt
+              and all(got_b[k] <= tol[k] for k in tol),
+              f"lm_serve (b) {dt}: card vs CPU {got_b}, bounds {tol}")
+        gate_b[dt] = dict(got_b, tol=tol)
+    del cut
+
+    # (c) the traffic in the config's dtype: two runs, bitwise equal
+    lens = rng.integers(traffic["prompt_min"], traffic["prompt_max"] + 1,
+                        traffic["requests"])
+    reqs = [Request(prompt=rng.integers(0, cfg.vocab, n).astype(np.int32),
+                    max_new_tokens=traffic["max_new_tokens"]) for n in lens]
+    engine = ServeEngine(model, params, batch_size=traffic["batch_size"],
+                         cache_len=traffic["cache_len"])
+    torch.cuda.reset_peak_memory_stats()
+    runs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = engine.generate(reqs)
+        wall = time.perf_counter() - t0
+        runs.append(dict(engine.timing, wall_s=wall,
+                         tokens=sum(len(o) for o in out), out=out))
+    peak_bytes = torch.cuda.max_memory_allocated()
+    bitwise = all(np.array_equal(a, b)
+                  for a, b in zip(runs[0]["out"], runs[1]["out"]))
+    in_range = all(o.min() >= 0 and o.max() < cfg.vocab for o in runs[1]["out"])
+    # the full-depth logits through the model's own entry points: prefill
+    # of one request, then decode steps from an empty cache at the engine's
+    # batch and cache length (profiled: not gated, the profiler may see no
+    # device activity in a sandbox)
+    B, S = traffic["batch_size"], max(lens)
+    logits, _ = model.prefill(params, {"tokens": reqs[0].prompt[None]})
+    caches = model.init_cache(B, traffic["cache_len"])
+    tok = torch.argmax(logits, -1).expand(B)[:, None]
+    steps, step_logits = 4, []
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for t in range(steps):
+            pos = torch.full((B,), S + t, dtype=torch.int32, device=dev)
+            logits_t, caches = model.decode_step(params, tok, caches, pos)
+            step_logits.append(logits_t)
+            tok = torch.argmax(logits_t, -1)[:, None]
+        b.record()
+        b.synchronize()
+    finite = bool(torch.isfinite(logits).all()
+                  and torch.isfinite(torch.stack(step_logits)).all())
+    check(bitwise and in_range and finite,
+          f"lm_serve (c): bitwise {bitwise}, tokens in range {in_range}, "
+          f"logits finite {finite}")
+    window_ms = a.elapsed_time(b)
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    profile = (dict(kernels_per_step=len(kernels) / steps,
+                    device_busy_share=busy_ms / window_ms,
+                    ms_per_step=window_ms / steps)
+               if kernels else "not measured")
+
+    # bounds: decode re-reads every fp32 master; prefill's operations are
+    # the products over every prompt position (logits at all of them, as the
+    # reference computes) and the causal attention pairs, at the bf16 rate
+    decode_bound_ms = param_bytes / hbm_bw * 1e3
+    mm_params = n_params - cfg.vocab * cfg.d_model * (
+        0 if cfg.tie_embeddings else 1) - (2 * cfg.n_layers + 1) * cfg.d_model
+    prefill_ops = (2 * mm_params * B * S + 2 * cfg.n_layers * B
+                   * cfg.n_heads * cfg.d_head * S * (S + 1))
+    prefill_bound_ms = max(param_bytes / hbm_bw, prefill_ops / H100_BF16_FLOPS) * 1e3
+    check(kernel_launches() == launches_before,
+          "lm_serve: the LM path launched a stencil kernel")
+    last = runs[1]
+    return dict(
+        arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+        act_dtype=cfg.act_dtype, params=n_params, param_bytes=param_bytes,
+        init_s=init_s, requests=len(reqs), prompt_lens=[int(n) for n in lens],
+        batch_size=B, cache_len=traffic["cache_len"],
+        max_new_tokens=traffic["max_new_tokens"],
+        prefill_ms=last["prefill_ms"],
+        decode_ms_per_step=last["decode_ms"] / last["decode_steps"],
+        generate_s=last["wall_s"], tokens_per_s=last["tokens"] / last["wall_s"],
+        first_run=dict(prefill_ms=runs[0]["prefill_ms"],
+                       decode_ms_per_step=runs[0]["decode_ms"]
+                       / runs[0]["decode_steps"], generate_s=runs[0]["wall_s"]),
+        peak_bytes=peak_bytes, decode_bound_ms=decode_bound_ms,
+        decode_bound_by="bytes", prefill_bound_ms=prefill_bound_ms,
+        decode_profile=profile,
+        gate_a=dict(tokens=seq[len(prompt):], min_top2_margin=min(margins)),
+        gate_b=dict(layers=2, tokens=list(tokens.shape),
+                    decode_steps=LM_DECODE_STEPS, **gate_b),
+        gate_c=dict(bitwise=bitwise, in_range=in_range, finite=finite,
+                    min_top2_margin=top2_margin(logits)),
+        stencil_kernel_launches=kernel_launches() - launches_before,
+    )
 
 
 def cold_start_child(store_dir: str, build_root: str, out_npy: str,
@@ -1045,6 +1292,13 @@ def main() -> int:
          survivor={n: dict(completed=i["scheduler"]["completed"],
                            launches=i["launches"])
                    for n, i in after_kill.items() if i["healthy"]})
+
+    # ---- 14. lm_serve: granite-3-2b through ServeEngine -------------------
+    from repro_torch.configs import base as arch_configs
+
+    emit(phase="lm_serve", nvidia_smi=smi, **lm_serve(
+        dev, arch_configs.get(LM_ARCH), LM_TRAFFIC, gpu.hbm_bw,
+        kernel_launches))
 
     kernels = [
         dict(name="stencil_cuda", route="cuda",

@@ -143,6 +143,8 @@ def autotune(
     devices=None,
     cache=None,
     store=None,
+    bucket=False,
+    strict: bool = False,
 ) -> TunedDesign:
     """The SASA entry point: DSL text (or a spec) -> ranked design + runner.
 
@@ -159,7 +161,26 @@ def autotune(
     the kernel build.  Without ``cache`` a store-backed cache is created;
     with one, the store is attached to it (a cache bound to a *different*
     store is refused).
+
+    With ``strict`` the spec is verified first and any error-severity
+    diagnostic raises :class:`repro_torch.core.analysis.VerificationError`
+    before anything is built; without it, analysis findings ride along on
+    ``TunedDesign.diagnostics``.
+
+    With ``bucket`` (requires ``cache``; ``True`` for the default
+    power-of-two ladder, or a :class:`repro_torch.runtime.ShapeBucketer`)
+    the design is ranked and built for the spec's padded *bucket* shape,
+    and the returned runner pads, masks and unpads: specs whose grids
+    share a bucket share one design (:mod:`repro_torch.runtime.bucketing`).
     """
+    spec_in = (
+        source_or_spec if isinstance(source_or_spec, StencilSpec)
+        else dsl.parse(source_or_spec)
+    )
+    if strict:
+        analysis.verify_or_raise(
+            spec_in, platform=platform, iterations=iterations,
+        )
     if store is not None:
         # imported here: the runtime package imports this module
         from repro_torch.runtime.cache import DesignCache
@@ -175,18 +196,51 @@ def autotune(
                 "autotune(store=...) conflicts with the cache's own store; "
                 "pass one or the other"
             )
+    if bucket:
+        if cache is None:
+            raise ValueError("autotune(bucket=...) requires cache=")
+        return _tune_bucketed(spec_in, bucket, cache, platform, iterations,
+                              device, devices, build)
     if cache is None:
-        return _tune(source_or_spec, platform, iterations, device, devices,
-                     build)
+        return _tune(spec_in, platform, iterations, device, devices, build)
     if not build:
-        return cache.design(source_or_spec, platform=platform,
+        return cache.design(spec_in, platform=platform,
                             iterations=iterations, device=device,
                             devices=devices)
-    cached = cache.get_or_build(source_or_spec, platform=platform,
+    cached = cache.get_or_build(spec_in, platform=platform,
                                 iterations=iterations, device=device,
                                 devices=devices)
     d = cached.design
     return dataclasses.replace(d, runner=_single_grid_runner(d.runner))
+
+
+def _tune_bucketed(spec, bucket, cache, platform, iterations, device,
+                   devices, build) -> TunedDesign:
+    """``autotune(bucket=...)``: the design of the spec's bucket, with a
+    runner that stages one grid through the bucket's pad-and-mask plan."""
+    # imported here: the runtime package imports this module
+    from repro_torch.runtime.bucketing import ShapeBucketer, bucket_spec
+
+    bd = cache.bucketed(
+        spec, bucketer=bucket if isinstance(bucket, ShapeBucketer) else None,
+        platform=platform, iterations=iterations, device=device,
+        devices=devices,
+    )
+    if not build:
+        return cache.design(
+            bucket_spec(spec, bd.bucket_for(spec.shape), bd.wrap_rounds),
+            platform=platform, iterations=iterations, devices=bd.devices,
+        )
+    entry = bd.runner_for(spec.shape)
+    inner = entry.cached.design
+
+    def runner(arrays):
+        # every name is passed through: the bucket runner refuses unknown
+        # inputs instead of this wrapper dropping them
+        return entry.runner({n: a[None] for n, a in arrays.items()})[0]
+
+    return TunedDesign(spec, inner.prediction, inner.ranking, runner,
+                       diagnostics=inner.diagnostics)
 
 
 def soda_baseline(

@@ -331,8 +331,10 @@ def _logical_lines(text: str) -> list[tuple[int, str]]:
 def parse(text: str, strict: bool = False) -> StencilSpec:
     """Parse SASA DSL text into a validated :class:`StencilSpec`.
 
-    ``strict=True`` asks for the static verifier, which the port does not
-    have yet; it raises :class:`NotImplementedError`.
+    With ``strict=True`` the parsed spec is additionally run through the
+    static verifier (:func:`repro_torch.core.analysis.verify`) and any
+    error-severity diagnostic raises
+    :class:`repro_torch.core.analysis.VerificationError`.
     """
     name = None
     iterations = 1
@@ -457,10 +459,10 @@ def parse(text: str, strict: bool = False) -> StencilSpec:
     )
     spec.validate()
     if strict:
-        raise NotImplementedError(
-            "strict parsing needs the static verifier (core/analysis.py), "
-            "which the port does not have yet"
-        )
+        # imported here: the analysis module imports this one
+        from repro_torch.core.analysis import verify_or_raise
+
+        verify_or_raise(spec, source=text)
     return spec
 
 

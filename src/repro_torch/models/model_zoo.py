@@ -1,0 +1,154 @@
+"""Model wrapper, PyTorch port of ``repro.models.model_zoo``: init, prefill
+and decode over an :class:`~repro_torch.configs.base.ArchConfig` whose
+blocks this slice runs (dense, VLM and encoder-decoder families).
+
+A ``Model`` bundles the stack with the embeddings, the modality-frontend
+stub (precomputed frontend embeddings and a projection, as in the
+reference), the LM head and the serving entry points.  As in the
+reference it holds no weights: :meth:`Model.init` returns the parameter
+tree, a :class:`~repro_torch.models.layers.ParamTree` on the model's
+device, and every entry point takes it.  Training (``loss``, ``_hidden``
+and the chunked cross-entropy) is a later slice of the port.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+from repro_torch.kernels.ops import _indexed, resolve_device
+from repro_torch.models import layers as L
+from repro_torch.models import transformer as T
+
+
+def act_dtype(name: str) -> torch.dtype:
+    """The torch dtype of a config's ``act_dtype`` name."""
+    dt = getattr(torch, str(name), None)
+    if not isinstance(dt, torch.dtype):
+        raise ValueError(f"unknown dtype {name!r}")
+    return dt
+
+
+@dataclasses.dataclass
+class Model:
+    cfg: Any
+    device: torch.device
+
+    # ---------------- parameter init ----------------
+    def init(self, generator: torch.Generator) -> L.ParamTree:
+        """Random fp32 masters drawn from ``generator``, on its device
+        (which must be the model's)."""
+        if _indexed(generator.device) != _indexed(self.device):
+            raise ValueError(
+                f"generator on {generator.device}, model on {self.device}")
+        cfg = self.cfg
+        params: dict = {}
+        params["embed"] = L.embedding_init(generator, cfg.vocab, cfg.d_model)
+        params["embed"] = params["embed"][0]
+        params["layers"] = T._stack_init(generator, cfg, cfg.pattern,
+                                         cfg.n_layers)
+        params["ln_f"] = L.rmsnorm_init(cfg.d_model, self.device)
+        if not cfg.tie_embeddings:
+            params["unembed"] = L._init_dense(
+                generator, (cfg.vocab, cfg.d_model), in_axis=1)
+        if cfg.enc_layers:
+            params["encoder"] = T._stack_init(generator, cfg, cfg.enc_pattern,
+                                              cfg.enc_layers)
+            params["ln_enc"] = L.rmsnorm_init(cfg.d_model, self.device)
+        if cfg.frontend:
+            params["frontend_proj"] = L._init_dense(
+                generator, (cfg.frontend_dim, cfg.d_model))
+        return L.ParamTree(params)
+
+    def _tensor(self, a, dtype=None):
+        return torch.as_tensor(a, dtype=dtype, device=self.device)
+
+    # ---------------- embedding assembly ----------------
+    def _embed_inputs(self, params, batch):
+        cfg = self.cfg
+        dt = act_dtype(cfg.act_dtype)
+        tok = self._tensor(batch["tokens"], torch.long)
+        x = L.embed(tok, params["embed"], dt)
+        if cfg.frontend and "frontend_embeds" in batch:
+            fe = self._tensor(batch["frontend_embeds"]).to(dt)
+            fe = torch.einsum("bnd,de->bne", fe,
+                              params["frontend_proj"].to(dt))
+            if cfg.enc_layers:
+                return x, fe            # enc-dec: frontend feeds the encoder
+            x = torch.cat([fe, x], dim=1)  # VLM early fusion
+        return x, None
+
+    def _encode(self, params, enc_in):
+        cfg = self.cfg
+        pos = L._positions(enc_in.shape[0], enc_in.shape[1], self.device)
+        h, _ = T.stack_apply(cfg, cfg.enc_pattern, params["encoder"], enc_in,
+                             positions=pos, mode="train")
+        return L.rmsnorm(h, params["ln_enc"]), pos
+
+    def _trunk(self, params, x, positions, mode, caches=None,
+               enc_out=None, enc_positions=None):
+        cfg = self.cfg
+        h, new_caches = T.stack_apply(
+            cfg, cfg.pattern, params["layers"], x, positions=positions,
+            mode=mode, caches=caches, enc_out=enc_out,
+            enc_positions=enc_positions)
+        h = L.rmsnorm(h, params["ln_f"])
+        table = params["embed"] if cfg.tie_embeddings else params["unembed"]
+        return L.unembed(h, table), new_caches
+
+    # ---------------- serve ----------------
+    def prefill(self, params, batch):
+        """``batch``: ``tokens`` (B,S) and, for a frontend config,
+        ``frontend_embeds`` (B,N,frontend_dim).  Returns the last
+        position's logits (B,V) and one cache per decoder block."""
+        cfg = self.cfg
+        x, fe = self._embed_inputs(params, batch)
+        enc_out = enc_pos = None
+        if cfg.enc_layers:
+            enc_in = fe if fe is not None else x
+            enc_out, enc_pos = self._encode(params, enc_in)
+        positions = L._positions(x.shape[0], x.shape[1], self.device)
+        logits, caches = self._trunk(params, x, positions, "prefill",
+                                     enc_out=enc_out, enc_positions=enc_pos)
+        return logits[:, -1], caches
+
+    def init_cache(self, batch_size, cache_len, dtype=None):
+        cfg = self.cfg
+        dt = act_dtype(dtype or cfg.act_dtype)
+        return T.init_stack_caches(cfg, cfg.pattern, cfg.n_layers,
+                                   batch_size, cache_len, dt, self.device)
+
+    def decode_step(self, params, tokens, caches, pos,
+                    enc_out=None, enc_positions=None):
+        """tokens (B,1); pos (B,) current positions.  The caches are
+        updated in place and returned."""
+        cfg = self.cfg
+        x = L.embed(self._tensor(tokens, torch.long), params["embed"],
+                    act_dtype(cfg.act_dtype))
+        positions = self._tensor(pos, torch.int32)[:, None]
+        logits, new_caches = self._trunk(params, x, positions, "decode",
+                                         caches=caches, enc_out=enc_out,
+                                         enc_positions=enc_positions)
+        return logits[:, 0], new_caches
+
+
+def build_model(cfg, device=None) -> Model:
+    """A :class:`Model` of ``cfg`` on ``device`` (default ``cuda``; raises
+    without it).  Every block kind of ``cfg`` must be one this slice runs.
+
+    TF32 and bf16 reduced-precision reductions are turned off for CUDA
+    matrix products here: the reference's float32 products are full
+    float32, and its bf16 products accumulate in float32.  The two flags
+    (``torch.backends.cuda.matmul.allow_tf32`` and
+    ``allow_bf16_reduced_precision_reduction``) are process-wide: they
+    stay off for every later CUDA product of the process and are never
+    restored.
+    """
+    device = resolve_device(device)
+    for kind in tuple(cfg.pattern) + (tuple(cfg.enc_pattern)
+                                      if cfg.enc_layers else ()):
+        T.require_ported(kind)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    return Model(cfg, device)

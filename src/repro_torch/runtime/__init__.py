@@ -17,6 +17,7 @@ from repro_torch.runtime.batching import (
     DegradedDesignWarning,
     build_batched_runner,
     build_bucket_runner,
+    devices_needed,
     validate_batch,
 )
 from repro_torch.runtime.bucketing import (
@@ -61,6 +62,7 @@ __all__ = [
     "DegradedDesignWarning",
     "build_batched_runner",
     "build_bucket_runner",
+    "devices_needed",
     "validate_batch",
     "BucketPlan",
     "ShapeBucketer",

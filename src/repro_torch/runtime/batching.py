@@ -63,6 +63,11 @@ class DegradedDesignWarning(RuntimeWarning):
     """A design is executing with less parallelism than its config claims."""
 
 
+def devices_needed(cfg: ParallelismConfig) -> int:
+    """Device count a config occupies (see ParallelismConfig.devices_needed)."""
+    return cfg.devices_needed
+
+
 def devices_used(cfg: ParallelismConfig, n_avail: int) -> int:
     """Devices a batched runner of ``cfg`` occupies on a pool of
     ``n_avail``: one for a temporal config (fused rounds of the tile

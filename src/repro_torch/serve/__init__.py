@@ -1,5 +1,6 @@
-"""Request-facing stencil serving of the PyTorch port: the server, the
-continuous-batching scheduler and the replicated router.
+"""Request-facing serving of the PyTorch port: the stencil server, the
+continuous-batching scheduler and the replicated router, and the LM
+engine (:mod:`repro_torch.serve.lm`).
 
 The names load on first use, so ``python -m repro_torch.serve --worker``
 can claim its protocol stream before torch is imported.
@@ -8,6 +9,8 @@ import importlib
 
 _EXPORTS = {
     "Backpressure": "scheduler",
+    "Request": "lm",
+    "ServeEngine": "lm",
     "StencilRequest": "engine",
     "StencilRouter": "router",
     "StencilScheduler": "scheduler",

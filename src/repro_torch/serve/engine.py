@@ -54,6 +54,9 @@ alone, or every visible CUDA device, and it raises without CUDA (pass
 ``device="cpu"`` to serve through the kernels' plain versions).  The pool
 goes to the design cache, as in the reference: designs are ranked for it,
 and a multi-device design serves through the shard runner.
+
+The LM token-serving engine lives in :mod:`repro_torch.serve.lm`; its
+classes are re-exported here, as the reference's engine module does.
 """
 from __future__ import annotations
 
@@ -67,6 +70,7 @@ import numpy as np
 
 from repro_torch.core import analysis, numerics
 from repro_torch.kernels.ops import resolve_pool
+from repro_torch.serve.lm import Request, ServeEngine  # noqa: F401
 from repro_torch.runtime.bucketing import ShapeBucketer
 from repro_torch.runtime.cache import (
     BucketedDesign,

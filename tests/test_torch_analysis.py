@@ -139,3 +139,22 @@ def test_autotune_attaches_bound_and_preflight():
     assert design.diagnostics[0].code == "SASA500"
     assert design.diagnostics[0].message == ref_design.diagnostics[0].message
     assert all(d.code != "SASA306" for d in design.diagnostics)
+
+
+def test_autotune_and_parse_strict():
+    """``tests/test_analysis.py::test_autotune_and_parse_strict``, ported:
+    strict parsing and strict tuning raise on SASA301, as the reference's
+    do, and the default stays lenient."""
+    with pytest.raises(ref_analysis.VerificationError) as ref_ei:
+        ref_dsl.parse(test_analysis.DIV_BAD, strict=True)
+    with pytest.raises(analysis.VerificationError):
+        autotune(test_analysis.DIV_BAD, platform=DEFAULT_GPU, device="cpu",
+                 build=False, strict=True)
+    td = autotune(test_analysis.DIV_BAD, platform=DEFAULT_GPU, device="cpu",
+                  build=False)
+    assert td.ranking
+    with pytest.raises(analysis.VerificationError) as ei:
+        dsl.parse(test_analysis.DIV_BAD, strict=True)
+    assert any(d.code == "SASA301" for d in ei.value.diagnostics)
+    assert _key(ei.value.diagnostics) == _key(ref_ei.value.diagnostics)
+    assert dsl.parse(test_analysis.DIV_BAD).name == "DIV-BAD"

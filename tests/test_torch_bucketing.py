@@ -16,10 +16,15 @@ import pytest
 from repro.configs import stencils as ref_stencils
 from repro.core import dsl as ref_dsl
 from repro.core.spec import Boundary as RefBoundary
+import jax.numpy as jnp
+from repro.kernels import ref as ref_oracle
 from repro.runtime import bucketing as ref_bucketing
 
 from repro_torch.core import dsl as pt_dsl
-from repro_torch.runtime import bucketing
+from repro_torch.core.autotune import autotune
+from repro_torch.core.model import ParallelismConfig
+from repro_torch import runtime
+from repro_torch.runtime import DesignCache, bucketing
 
 MODES = [RefBoundary("zero"), RefBoundary("constant", 25.0),
          RefBoundary("replicate"), RefBoundary("periodic")]
@@ -129,3 +134,54 @@ def test_unbucketable_division_refused_like_reference():
         ref_bucketing.masked_spec(ref_dsl.parse(text))
     with pytest.raises(ValueError, match="cannot be shape-bucketed"):
         bucketing.masked_spec(pt_dsl.parse(text))
+
+
+# ---------------------------------------------------------------------------
+# autotune(bucket=...) and devices_needed, ported from the reference's tests
+# ---------------------------------------------------------------------------
+
+RNG = np.random.default_rng(17)
+
+
+def _jacobi2d(shape, iterations):
+    return _port(ref_stencils.jacobi2d(shape=shape, iterations=iterations))
+
+
+def test_autotune_bucket_runner_rejects_unknown_inputs():
+    """``tests/test_bucketing.py``: the bucket-aware wrapper must not
+    pre-filter a typo'd array name into silence."""
+    d = autotune(_jacobi2d((16, 8), 2), cache=DesignCache(), bucket=True,
+                 device="cpu")
+    x = np.zeros((16, 8), np.float32)
+    with pytest.raises(ValueError, match="unknown input"):
+        d.runner({"in_1": x, "in_1_typo": x})
+
+
+def test_autotune_bucket_path_matches_ref_and_shares_designs():
+    """``tests/test_bucketing.py``: within 2e-4 of the reference's oracle,
+    and a second spec in the same bucket is a pure cache hit."""
+    cache = DesignCache()
+    iters = 3
+    for i, shape in enumerate([(20, 13), (28, 12)]):
+        misses = cache.misses
+        spec = ref_stencils.jacobi2d(shape=shape, iterations=iters)
+        d = autotune(_port(spec), cache=cache, bucket=True, device="cpu")
+        if i:
+            assert cache.misses == misses
+        x = RNG.standard_normal(shape).astype(np.float32)
+        want = np.asarray(ref_oracle.stencil_iterations_ref(
+            spec, {"in_1": jnp.asarray(x)}, iters))
+        np.testing.assert_allclose(np.asarray(d.runner({"in_1": x})), want,
+                                   rtol=2e-4, atol=2e-4)
+
+
+def test_autotune_bucket_requires_cache():
+    with pytest.raises(ValueError, match="requires cache"):
+        autotune(_jacobi2d((16, 8), 2), bucket=True, device="cpu")
+
+
+def test_devices_needed():
+    """``tests/test_runtime.py::test_devices_needed``."""
+    assert runtime.devices_needed(ParallelismConfig("temporal", k=1, s=4)) == 4
+    assert runtime.devices_needed(ParallelismConfig("spatial_s", k=8, s=1)) == 8
+    assert runtime.devices_needed(ParallelismConfig("hybrid_s", k=2, s=3)) == 2
