@@ -6,7 +6,7 @@ Run from the root of a checkout, on a machine with one CUDA card::
 
 It builds the CUDA tile kernels from ``src/repro_torch/kernels/csrc`` into
 ``build/repro_torch_kernels/`` (one ``nvcc`` per kernel, all at once), then
-runs fourteen phases, each printing JSON lines:
+runs fifteen phases, each printing JSON lines:
 
   1. device    the card's name and power limit (``nvidia-smi``), versions;
   2. build     kernels built and seconds;
@@ -115,7 +115,24 @@ runs fourteen phases, each printing JSON lines:
                prefill ms, decode ms per step beside the byte bound of
                re-reading the masters, tokens/s and a profile of 4 decode
                steps.  The LM path launches no stencil kernel, and the
-               phase checks that K1/K2's counts do not move.
+               phase checks that K1/K2's counts do not move;
+ 15. lm_mixers the MoE, SSM and hybrid families through the same checks
+               as ``lm_serve``, one line per config, one after another,
+               the memory of each freed before the next:
+               recurrentgemma-2b (26 layers of RG-LRU and local
+               attention), mamba2-130m (24 Mamba-2 SSD layers) and
+               qwen2-moe-a2.7b (24 layers of 64 stored experts, top-4,
+               and a shared expert), each at full width and at full depth
+               where its fp32 masters fit the card beside
+               ``LM_HEADROOM_BYTES`` (a cut depth is printed as
+               ``reduced``).  Gate (b) runs one pattern group deep (3
+               layers for recurrentgemma, 2 for the others), with the
+               family's bf16 bounds (``LM_CPU_TOL``) and, for MoE, the
+               tokens routed differently on the card and on the CPU;
+               gate (a) runs MoE prefill at capacity ``n_experts /
+               top_k``, where no token can drop.  For MoE the line also
+               gives the served prefill's dropped share at the config's
+               capacity.
 
 Then one JSON line lists every kernel with its launches, error and times,
 and the last line is ``{"ok": true, "device": {...}}``.  Any failure
@@ -178,26 +195,41 @@ input bfloat16: x(16, 24)
 output bfloat16: y(0,0) = (x(0,1) + x(1,0) + x(0,0) + x(0,-1) + x(-1,0)) / 5
 """
 
-# phase lm_serve: granite-3-2b at full width and depth, random weights from
-# a seeded generator on the card, and the traffic below in the config's
-# bf16; gate (b) holds the card's prefill logits and LM_DECODE_STEPS decode
-# steps' logits at depth 2 to the port's CPU path on the same weights and
-# tokens, in float32 and in bf16, within LM_CPU_TOL: ``max_rel`` is
-# max|card - cpu| / max|cpu|, ``rms_rel`` ||card - cpu|| / ||cpu||.  The
-# bounds lie between the largest sound reading and the smallest reading
-# with a fault injected, over 5 token sets of tools/lm_gate_readings.py on
-# an H100 (PERF.md): float32 read <= 2.1e-6, with TF32 products >= 9.7e-4;
-# bf16 read rms <= 8.2e-3 (prefill) and 7.1e-3 (decode), with attention
-# and norms left in bf16 >= 1.58e-2 and 1.31e-2.
+# phases lm_serve and lm_mixers: each config at full width (and depth,
+# unless the card cannot hold it), random weights from a seeded generator
+# on the card, and the traffic below in the config's bf16; gate (b) holds
+# the card's prefill logits and LM_DECODE_STEPS decode steps' logits, cut
+# to one pattern group (at least 2 layers), to the port's CPU path on the
+# same weights and tokens, in float32 and in bf16, within LM_CPU_TOL:
+# ``max_rel`` is max|card - cpu| / max|cpu|, ``rms_rel`` ||card - cpu|| /
+# ||cpu||.  The bounds lie between the largest sound reading and the
+# smallest reading with a fault injected, over 5 token sets of
+# tools/lm_gate_readings.py --arch on an H100 (PERF.md): float32 read
+# <= 3.6e-6 for every family, with TF32 products >= 6.9e-4; bf16 rms
+# (prefill, decode) read <= (8.2e-3, 7.1e-3) for granite-3-2b, (1.11e-2,
+# 1.14e-2) for recurrentgemma-2b and (5.4e-3, 3.9e-3) for mamba2-130m,
+# with every upcast dropped (``no_upcast``) >= (1.58e-2, 1.31e-2),
+# (2.08e-2, 2.14e-2) and (1.16e-2, 1.18e-2).  qwen2-moe-a2.7b has no bf16
+# bound: 2-16 of 320 tokens route to other experts on the card than on
+# the CPU in bf16 (0 in float32), so its sound bf16 readings (rms up to
+# 5.6e-2) overlap the faulty ones (from 2.4e-2); its bf16 path is held by
+# gate (c), its readings and flips are printed.
 LM_ARCH = "granite_3_2b"
+LM_MIXER_ARCHS = ("recurrentgemma_2b", "mamba2_130m", "qwen2_moe_a2_7b")
 LM_SEED = 2022
 LM_TRAFFIC = dict(batch_size=8, cache_len=1024, requests=8, prompt_min=64,
                   prompt_max=512, max_new_tokens=64)
 LM_DECODE_STEPS = 16
 LM_CPU_TOL = {
     "float32": dict(prefill_max_rel=1e-4, decode_max_rel=1e-4),
-    "bfloat16": dict(prefill_rms_rel=1.1e-2, decode_rms_rel=1.0e-2),
+    "bfloat16": {
+        "granite_3_2b": dict(prefill_rms_rel=1.1e-2, decode_rms_rel=1.0e-2),
+        "recurrentgemma_2b": dict(prefill_rms_rel=1.5e-2,
+                                  decode_rms_rel=1.55e-2),
+        "mamba2_130m": dict(prefill_rms_rel=8e-3, decode_rms_rel=7e-3),
+    },
 }
+LM_HEADROOM_BYTES = 12e9   # activations, bf16 weight copies, caches, logits
 H100_BF16_FLOPS = 989e12   # NVIDIA data sheet, dense
 
 
@@ -210,14 +242,72 @@ def check(ok: bool, what: str) -> None:
         raise RuntimeError(f"chip_smoke: {what}")
 
 
+def lm_cpu_tol(arch: str, dt: str) -> dict:
+    """Gate (b)'s bounds for ``arch`` in activation dtype ``dt`` (empty:
+    only the logits' finiteness and the cache dtype are held)."""
+    tol = LM_CPU_TOL[dt]
+    return tol if dt == "float32" else tol.get(arch, {})
+
+
+def gate_layers(cfg) -> int:
+    """Gate (b)'s depth: one pattern group, at least 2 layers."""
+    return max(2, len(cfg.pattern))
+
+
+class MoeProbe:
+    """While active, every MoE layer's dispatch is recorded: its dropped
+    share (``moe_apply``'s ``return_aux``) and the sorted experts of each
+    token.  The layer's output is unchanged."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.models import mixers
+
+        apply = self._apply = mixers.moe_apply
+
+        def probe(x, p, **kw):
+            y, aux = apply(x, p, **dict(kw, return_aux=True))
+            E = p["router"].shape[1]
+            logits = x.reshape(-1, x.shape[-1]).float() @ p["router"].float()
+            n_real = kw.get("n_experts_real") or E
+            logits[:, n_real:] = -1e30
+            experts = torch.topk(logits, kw["top_k"], dim=-1).indices
+            self.calls.append(dict(
+                dropless=kw.get("dropless", False),
+                dropped_frac=float(aux["dropped_frac"]),
+                experts=experts.sort(-1).values.cpu()))
+            return y
+
+        mixers.moe_apply = probe
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import mixers
+
+        mixers.moe_apply = self._apply
+        return False
+
+    def flips(self, other: "MoeProbe") -> int:
+        """Tokens whose expert set differs from ``other``'s, same calls."""
+        check(len(self.calls) == len(other.calls), "MoeProbe: call counts")
+        return sum(int((a["experts"] != b["experts"]).any(-1).sum())
+                   for a, b in zip(self.calls, other.calls))
+
+
 def lm_logits(model, params, tokens, steps):
     """Prefill logits of ``tokens`` (B,S) and the logits of ``steps`` decode
     steps from an empty cache fed ``tokens[:, :steps]``, as float32 on the
-    CPU, with the dtype of the prefill caches' k."""
+    CPU, with the dtype of the first block's prefill cache (its k, or the
+    conv state of a recurrent block)."""
     import torch
 
     pre, caches = model.prefill(params, {"tokens": tokens})
-    cache_dtype = str(caches[0]["k"].dtype).removeprefix("torch.")
+    first = caches[0]["k"] if "k" in caches[0] else caches[0]["conv"]
+    cache_dtype = str(first.dtype).removeprefix("torch.")
     B = tokens.shape[0]
     caches = model.init_cache(B, steps)
     dec = []
@@ -241,36 +331,102 @@ def logit_errs(got, ref) -> dict:
     return out
 
 
+def cpu_copy(tree):
+    """A copy of a ``ParamTree`` on the CPU, leaf by leaf (nothing is
+    copied on the card)."""
+    import torch
+
+    from repro_torch.models import layers as L
+
+    def walk(m):
+        if isinstance(m, torch.nn.ModuleList):
+            return [walk(v) for v in m]
+        out = {n: t.detach().cpu() for n, t in m._parameters.items()}
+        out.update((n, walk(v)) for n, v in m._modules.items())
+        return out
+
+    return L.ParamTree(walk(tree))
+
+
+def cut_params(params, n_layers: int):
+    """The first ``n_layers`` blocks of ``params`` with its embeddings and
+    final norm (shared, not copied)."""
+    from repro_torch.models import layers as L
+
+    tree = {"embed": params["embed"], "ln_f": params["ln_f"],
+            "layers": [params["layers"][i] for i in range(n_layers)]}
+    if "unembed" in params:
+        tree["unembed"] = params["unembed"]
+    return L.ParamTree(tree)
+
+
 def lm_vs_cpu(dev, cfg, params, tokens, steps) -> dict:
     """``cfg``'s model on ``dev`` against the port's CPU path on a copy of
     ``params``: :func:`logit_errs`, whether the card's logits are finite,
-    and the card's cache dtype."""
-    import copy
-
+    the card's cache dtype, and for MoE the tokens routed to other experts
+    on the card than on the CPU."""
     import torch
 
     from repro_torch.models.model_zoo import build_model
 
-    card = lm_logits(build_model(cfg, device=dev), params, tokens, steps)
-    cpu = lm_logits(build_model(cfg, device="cpu"),
-                    copy.deepcopy(params).to("cpu"), tokens, steps)
-    return dict(finite=bool(torch.isfinite(card[0]).all()
-                            and torch.isfinite(card[1]).all()),
-                cache_dtype=card[2], **logit_errs(card[:2], cpu[:2]))
+    with MoeProbe() as on_card:
+        card = lm_logits(build_model(cfg, device=dev), params, tokens, steps)
+    with MoeProbe() as on_cpu:
+        cpu = lm_logits(build_model(cfg, device="cpu"), cpu_copy(params),
+                        tokens, steps)
+    out = dict(finite=bool(torch.isfinite(card[0]).all()
+                           and torch.isfinite(card[1]).all()),
+               cache_dtype=card[2], **logit_errs(card[:2], cpu[:2]))
+    if on_card.calls:
+        out["routing_flips"] = on_card.flips(on_cpu)
+        out["routed_tokens"] = sum(c["experts"].shape[0]
+                                   for c in on_card.calls)
+    return out
+
+
+def lm_depth(cfg, dev) -> int:
+    """The most layers of ``cfg`` whose fp32 masters, with
+    ``LM_HEADROOM_BYTES`` beside them, fit in the card's free memory.
+    Blocks are counted by initialising one pattern group on the card."""
+    import torch
+
+    from repro_torch.models import transformer as T
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    group = [sum(t.numel() for t in _leaves(T.block_init(gen, cfg, kind)))
+             for kind in cfg.pattern]
+    torch.cuda.empty_cache()
+    fixed = cfg.vocab * cfg.d_model * (1 if cfg.tie_embeddings else 2)
+    free = torch.cuda.mem_get_info(dev)[0] - LM_HEADROOM_BYTES
+    n = 0
+    while (n < cfg.n_layers
+           and 4 * (fixed + sum(group[i % len(group)] for i in range(n + 1)))
+           <= free):
+        n += 1
+    return n
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
 
 
 def lm_serve(dev, cfg, traffic: dict, hbm_bw: float, kernel_launches) -> dict:
-    """Phase ``lm_serve``: ``ServeEngine`` on ``cfg`` at its full size with
-    random weights initialised on ``dev``; gates (a)-(c) raise."""
+    """``ServeEngine`` on ``cfg`` at its full size with random weights
+    initialised on ``dev``; gates (a)-(c) raise.  Phase ``lm_serve`` runs
+    it on granite-3-2b, phase ``lm_mixers`` on each of LM_MIXER_ARCHS."""
     import dataclasses
 
     import numpy as np
     import torch
 
-    from repro_torch.models import layers as L
     from repro_torch.models.model_zoo import build_model
     from repro_torch.serve.lm import Request, ServeEngine
 
+    name = cfg.name
     launches_before = kernel_launches()
     rng = np.random.default_rng(LM_SEED)
     model = build_model(cfg, device=dev)
@@ -283,43 +439,50 @@ def lm_serve(dev, cfg, traffic: dict, hbm_bw: float, kernel_launches) -> dict:
     n_params = sum(p.numel() for p in params.parameters())
     param_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
     check(all(p.dtype == torch.float32 for p in params.parameters()),
-          "lm_serve: the masters are not float32")
+          f"{name}: the masters are not float32")
 
     def top2_margin(logits) -> float:
         top = torch.topk(logits.float(), 2, dim=-1).values
         return float((top[..., 0] - top[..., 1]).min())
 
-    # (a) decode equals repeated prefill, float32 activations, full size
+    # (a) decode equals repeated prefill, float32 activations, full size; an
+    # MoE prefill with capacity n_experts/top_k drops no token (an expert
+    # can take every token), as the dropless decode does
     cfg32 = dataclasses.replace(cfg, act_dtype="float32")
+    if cfg.n_experts:
+        cfg32 = dataclasses.replace(
+            cfg32, capacity_factor=cfg.n_experts / cfg.top_k)
     model32 = build_model(cfg32, device=dev)
     prompt = rng.integers(0, cfg.vocab, 16).astype(np.int32)
     got = ServeEngine(model32, params, batch_size=1, cache_len=32).generate(
         [Request(prompt=prompt, max_new_tokens=4)])[0]
     seq, margins = list(prompt), []
-    for _ in range(4):
-        logits, _ = model32.prefill(params, {"tokens": np.asarray([seq])})
-        margins.append(top2_margin(logits))
-        seq.append(int(torch.argmax(logits[0])))
-    gate_a = [int(t) for t in got] == seq[len(prompt):]
-    check(gate_a, f"lm_serve (a): decode gave {list(got)}, repeated "
-                  f"prefill {seq[len(prompt):]} (top-2 margins {margins})")
+    with MoeProbe() as probe_a:
+        for _ in range(4):
+            logits, _ = model32.prefill(params, {"tokens": np.asarray([seq])})
+            margins.append(top2_margin(logits))
+            seq.append(int(torch.argmax(logits[0])))
+    dropped_a = max((c["dropped_frac"] for c in probe_a.calls), default=0.0)
+    gate_a = [int(t) for t in got] == seq[len(prompt):] and dropped_a == 0
+    check(gate_a, f"{name} (a): decode gave {list(got)}, repeated "
+                  f"prefill {seq[len(prompt):]} (top-2 margins {margins}, "
+                  f"prefill dropped share {dropped_a})")
 
-    # (b) the card against the port's CPU path on the same weights, depth 2,
-    # in float32 and in the config's dtype: prefill and decode logits
-    cut = L.ParamTree({"embed": params["embed"],
-                       "layers": [params["layers"][i] for i in range(2)],
-                       "ln_f": params["ln_f"]})
+    # (b) the card against the port's CPU path on the same weights, one
+    # pattern group deep, in float32 and in the config's dtype
+    depth_b = gate_layers(cfg)
+    cut = cut_params(params, depth_b)
     tokens = rng.integers(0, cfg.vocab, (2, 64)).astype(np.int32)
     gate_b = {}
     for dt in dict.fromkeys(("float32", cfg.act_dtype)):
-        got_b = lm_vs_cpu(dev, dataclasses.replace(cfg, n_layers=2,
+        got_b = lm_vs_cpu(dev, dataclasses.replace(cfg, n_layers=depth_b,
                                                   act_dtype=dt),
                           cut, tokens, LM_DECODE_STEPS)
-        tol = LM_CPU_TOL[dt]
+        tol = lm_cpu_tol(name, dt)
         check(got_b["finite"] and got_b["cache_dtype"] == dt
               and all(got_b[k] <= tol[k] for k in tol),
-              f"lm_serve (b) {dt}: card vs CPU {got_b}, bounds {tol}")
-        gate_b[dt] = dict(got_b, tol=tol)
+              f"{name} (b) {dt}: card vs CPU {got_b}, bounds {tol}")
+        gate_b[dt] = dict(got_b, tol=tol or "none (finite, cache dtype)")
     del cut
 
     # (c) the traffic in the config's dtype: two runs, bitwise equal
@@ -343,13 +506,17 @@ def lm_serve(dev, cfg, traffic: dict, hbm_bw: float, kernel_launches) -> dict:
                   for a, b in zip(runs[0]["out"], runs[1]["out"]))
     in_range = all(o.min() >= 0 and o.max() < cfg.vocab for o in runs[1]["out"])
     # the full-depth logits through the model's own entry points: prefill
-    # of one request, then decode steps from an empty cache at the engine's
-    # batch and cache length (profiled: not gated, the profiler may see no
-    # device activity in a sandbox)
+    # of the served batch (the engine's left padding; for MoE its dropped
+    # share at the config's capacity), then decode steps from an empty
+    # cache at the engine's batch and cache length (profiled: not gated,
+    # the profiler may see no device activity on some hosts)
     B, S = traffic["batch_size"], max(lens)
-    logits, _ = model.prefill(params, {"tokens": reqs[0].prompt[None]})
+    prompts = np.stack([np.pad(r.prompt, (S - len(r.prompt), 0))
+                        for r in reqs])
+    with MoeProbe() as probe_c:
+        logits, _ = model.prefill(params, {"tokens": prompts})
     caches = model.init_cache(B, traffic["cache_len"])
-    tok = torch.argmax(logits, -1).expand(B)[:, None]
+    tok = torch.argmax(logits, -1)[:, None]
     steps, step_logits = 4, []
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
@@ -367,7 +534,7 @@ def lm_serve(dev, cfg, traffic: dict, hbm_bw: float, kernel_launches) -> dict:
     finite = bool(torch.isfinite(logits).all()
                   and torch.isfinite(torch.stack(step_logits)).all())
     check(bitwise and in_range and finite,
-          f"lm_serve (c): bitwise {bitwise}, tokens in range {in_range}, "
+          f"{name} (c): bitwise {bitwise}, tokens in range {in_range}, "
           f"logits finite {finite}")
     window_ms = a.elapsed_time(b)
     kernels = [e for e in prof.events()
@@ -380,18 +547,30 @@ def lm_serve(dev, cfg, traffic: dict, hbm_bw: float, kernel_launches) -> dict:
 
     # bounds: decode re-reads every fp32 master; prefill's operations are
     # the products over every prompt position (logits at all of them, as the
-    # reference computes) and the causal attention pairs, at the bf16 rate
+    # reference computes; an MoE layer's routed experts only) and the causal
+    # attention pairs (window-limited for local attention), at the bf16 rate
     decode_bound_ms = param_bytes / hbm_bw * 1e3
-    mm_params = n_params - cfg.vocab * cfg.d_model * (
-        0 if cfg.tie_embeddings else 1) - (2 * cfg.n_layers + 1) * cfg.d_model
-    prefill_ops = (2 * mm_params * B * S + 2 * cfg.n_layers * B
-                   * cfg.n_heads * cfg.d_head * S * (S + 1))
-    prefill_bound_ms = max(param_bytes / hbm_bw, prefill_ops / H100_BF16_FLOPS) * 1e3
+    mm_params = sum(p.numel() for n, p in params.named_parameters()
+                    if p.dim() >= 2 and n.rsplit(".", 1)[-1]
+                    not in ("conv_w", "bq", "bk", "bv"))
+    if not cfg.tie_embeddings:
+        mm_params -= cfg.vocab * cfg.d_model     # the embedding is a lookup
+    kinds = [cfg.pattern[i % len(cfg.pattern)] for i in range(cfg.n_layers)]
+    n_moe = sum(k.endswith("_moe") for k in kinds)
+    mm_params -= n_moe * (cfg.n_experts_padded - cfg.top_k) * 3 \
+        * cfg.d_model * cfg.d_ff_expert
+    pairs = sum(sum(min(q + 1, cfg.window) if k == "local" else q + 1
+                    for q in range(S))
+                for k in kinds if k in ("attn", "attn_moe", "local"))
+    prefill_ops = 2 * mm_params * B * S + 4 * B * cfg.n_heads * cfg.d_head \
+        * pairs
+    prefill_bound_ms = max(param_bytes / hbm_bw,
+                           prefill_ops / H100_BF16_FLOPS) * 1e3
     check(kernel_launches() == launches_before,
-          "lm_serve: the LM path launched a stencil kernel")
+          f"{name}: the LM path launched a stencil kernel")
     last = runs[1]
-    return dict(
-        arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+    out = dict(
+        arch=name, layers=cfg.n_layers, d_model=cfg.d_model,
         act_dtype=cfg.act_dtype, params=n_params, param_bytes=param_bytes,
         init_s=init_s, requests=len(reqs), prompt_lens=[int(n) for n in lens],
         batch_size=B, cache_len=traffic["cache_len"],
@@ -406,12 +585,49 @@ def lm_serve(dev, cfg, traffic: dict, hbm_bw: float, kernel_launches) -> dict:
         decode_bound_by="bytes", prefill_bound_ms=prefill_bound_ms,
         decode_profile=profile,
         gate_a=dict(tokens=seq[len(prompt):], min_top2_margin=min(margins)),
-        gate_b=dict(layers=2, tokens=list(tokens.shape),
+        gate_b=dict(layers=depth_b, tokens=list(tokens.shape),
                     decode_steps=LM_DECODE_STEPS, **gate_b),
         gate_c=dict(bitwise=bitwise, in_range=in_range, finite=finite,
                     min_top2_margin=top2_margin(logits)),
         stencil_kernel_launches=kernel_launches() - launches_before,
     )
+    if cfg.n_experts:
+        out["gate_a"].update(capacity_factor=cfg32.capacity_factor,
+                             prefill_dropped_frac=dropped_a)
+        drops = [c["dropped_frac"] for c in probe_c.calls]
+        out["prefill_dropped_frac"] = dict(
+            capacity_factor=cfg.capacity_factor, mean=sum(drops) / len(drops),
+            max=max(drops), layers=len(drops))
+    return out
+
+
+def lm_mixers(dev, traffic: dict, hbm_bw: float, kernel_launches):
+    """Phase ``lm_mixers``: :func:`lm_serve` on each of LM_MIXER_ARCHS in
+    turn, the memory of each freed before the next.  A config whose full
+    depth does not fit runs at the depth that does (``reduced`` says so);
+    its width is never cut.  Yields one result per config."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from repro_torch.configs import base as arch_configs
+
+    for arch in LM_MIXER_ARCHS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = arch_configs.get(arch)
+        depth = lm_depth(cfg, dev)
+        check(depth >= gate_layers(cfg), f"{arch}: {depth} layers fit")
+        reduced = None
+        if depth < cfg.n_layers:
+            reduced = dict(n_layers=[cfg.n_layers, depth],
+                           why="fp32 masters beside LM_HEADROOM_BYTES "
+                               "exceed the card's free memory")
+            cfg = dataclasses.replace(cfg, n_layers=depth)
+        t0 = time.perf_counter()
+        got = lm_serve(dev, cfg, traffic, hbm_bw, kernel_launches)
+        yield dict(got, reduced=reduced, phase_s=time.perf_counter() - t0)
 
 
 def cold_start_child(store_dir: str, build_root: str, out_npy: str,
@@ -1299,6 +1515,10 @@ def main() -> int:
     emit(phase="lm_serve", nvidia_smi=smi, **lm_serve(
         dev, arch_configs.get(LM_ARCH), LM_TRAFFIC, gpu.hbm_bw,
         kernel_launches))
+
+    # ---- 15. lm_mixers: the MoE, SSM and hybrid families ------------------
+    for got in lm_mixers(dev, LM_TRAFFIC, gpu.hbm_bw, kernel_launches):
+        emit(phase="lm_mixers", nvidia_smi=smi, **got)
 
     kernels = [
         dict(name="stencil_cuda", route="cuda",

@@ -6,7 +6,11 @@ numpy arrays (``jax.tree.map(np.asarray, params)``), into the port's
 pattern position's blocks along a leading group axis
 (``layers.scanned[j]``) and keeps the remainder unstacked (``tail``); the
 port's stack is flat, so ``scanned[j][g]`` becomes layer
-``g*len(pattern)+j`` and ``tail[j]`` layer ``n_groups*len(pattern)+j``.
+``g*len(pattern)+j`` and ``tail[j]`` layer ``n_groups*len(pattern)+j``
+(RecurrentGemma's 26 layers: 8 groups of ``(rec, rec, local)``, then its
+two tail ``rec`` blocks as layers 24 and 25).  Every block's subtree
+(attention, MLP, experts with router and shared expert, SSD, RG-LRU)
+keeps its names and layouts.
 """
 from __future__ import annotations
 
@@ -31,7 +35,7 @@ def _map(tree, fn):
 def _unstack(stack: Mapping, pattern, n_layers: int) -> list:
     """The reference's ``{"scanned", "tail"}`` stack as a flat block list."""
     for kind in pattern:
-        T.require_ported(kind)
+        T.check_kind(kind)
     glen = len(pattern)
     n_groups = n_layers // glen
     scanned, tail = list(stack["scanned"]), list(stack["tail"])

@@ -1,6 +1,6 @@
 """Model wrapper, PyTorch port of ``repro.models.model_zoo``: init, prefill
-and decode over an :class:`~repro_torch.configs.base.ArchConfig` whose
-blocks this slice runs (dense, VLM and encoder-decoder families).
+and decode over any :class:`~repro_torch.configs.base.ArchConfig` (the
+dense, VLM, encoder-decoder, MoE, SSM and hybrid families).
 
 A ``Model`` bundles the stack with the embeddings, the modality-frontend
 stub (precomputed frontend embeddings and a projection, as in the
@@ -135,7 +135,7 @@ class Model:
 
 def build_model(cfg, device=None) -> Model:
     """A :class:`Model` of ``cfg`` on ``device`` (default ``cuda``; raises
-    without it).  Every block kind of ``cfg`` must be one this slice runs.
+    without it).  An unknown block kind raises :class:`ValueError`.
 
     TF32 and bf16 reduced-precision reductions are turned off for CUDA
     matrix products here: the reference's float32 products are full
@@ -148,7 +148,7 @@ def build_model(cfg, device=None) -> Model:
     device = resolve_device(device)
     for kind in tuple(cfg.pattern) + (tuple(cfg.enc_pattern)
                                       if cfg.enc_layers else ()):
-        T.require_ported(kind)
+        T.check_kind(kind)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     return Model(cfg, device)

@@ -1,12 +1,16 @@
 """Architecture assembly, PyTorch port of ``repro.models.transformer``:
-decoder-only, encoder-decoder and VLM stacks of the block kinds
+decoder-only, encoder-decoder and VLM stacks of every block kind of the
+reference:
 
-  "attn"  (causal GQA + MLP), "local" (sliding-window GQA + MLP),
-  "enc"   (bidirectional GQA + MLP), "xattn" (decoder self + cross + MLP).
+  "attn"     (causal GQA + MLP),     "attn_moe" (causal GQA + MoE),
+  "local"    (sliding-window GQA + MLP), "enc" (bidirectional GQA + MLP),
+  "xattn"    (decoder self + cross + MLP),
+  "rec"      (RG-LRU + MLP),          "ssm" (Mamba-2 SSD, no MLP).
 
-The kinds "attn_moe", "rec" and "ssm" need ``models/mixers.py`` (MoE,
-RG-LRU, Mamba-2 SSD), which ROADMAP queues as the next slice of the port;
-they raise :class:`NotImplementedError`.
+The mixers (MoE, RG-LRU, Mamba-2 SSD) are ``models/mixers.py``.  The
+MoE layers dispatch with the config's capacity in prefill and dropless in
+decode, as the reference does on one device (its expert-parallel
+dispatch needs a mesh).
 
 A stack is a flat list of blocks: layer ``i`` has kind
 ``pattern[i % len(pattern)]`` (the reference's layer ``g*len(pattern)+j``
@@ -18,27 +22,24 @@ one device.
 
 Modes are the reference's: ``"train"`` (a forward without a cache, which
 the encoder runs), ``"prefill"`` and ``"decode"``.  Decode writes each
-row's ring slot ``pos % cache_len`` of k, v and pos *in place* and returns
-the same cache dict.
+attention row's ring slot ``pos % cache_len`` of k, v and pos *in place*
+and returns the same cache dict; a recurrent block (``rec``, ``ssm``)
+returns a new state dict.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.models import layers as L
+from repro_torch.models import mixers as M
 
-ATTN_KINDS = ("attn", "local", "enc", "xattn")
-NEXT_SLICE_KINDS = ("attn_moe", "rec", "ssm")
+ATTN_KINDS = ("attn", "attn_moe", "local", "enc", "xattn")
+KINDS = ATTN_KINDS + ("rec", "ssm")
 
 
-def require_ported(kind: str) -> None:
-    """Refuse a block kind this slice of the port does not run."""
-    if kind in NEXT_SLICE_KINDS:
-        raise NotImplementedError(
-            f"block kind {kind!r} needs models/mixers.py (MoE, RG-LRU, "
-            "Mamba-2 SSD), the next slice of the port in ROADMAP"
-        )
-    if kind not in ATTN_KINDS:
+def check_kind(kind: str) -> None:
+    """Refuse a block kind the reference does not have."""
+    if kind not in KINDS:
         raise ValueError(kind)
 
 
@@ -49,35 +50,67 @@ def require_ported(kind: str) -> None:
 
 def block_init(generator, cfg, kind: str) -> dict:
     """The parameter tree of one block of the given kind."""
-    require_ported(kind)
+    check_kind(kind)
     dev = generator.device
-    params = {
-        "ln_attn": L.rmsnorm_init(cfg.d_model, dev),
-        "attn": L.attention_init(
+    params = {}
+    if kind in ATTN_KINDS:
+        params["ln_attn"] = L.rmsnorm_init(cfg.d_model, dev)
+        params["attn"] = L.attention_init(
             generator, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head,
-            qkv_bias=cfg.qkv_bias),
-    }
+            qkv_bias=cfg.qkv_bias)
     if kind == "xattn":
         params["ln_cross"] = L.rmsnorm_init(cfg.d_model, dev)
         params["cross"] = L.attention_init(
             generator, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head,
             qkv_bias=cfg.qkv_bias)
+    if kind == "rec":
+        params["ln_rec"] = L.rmsnorm_init(cfg.d_model, dev)
+        params["rec"] = M.rglru_init(generator, cfg.d_model,
+                                     lru_width=cfg.lru_width or cfg.d_model)
+    if kind == "ssm":
+        params["ln_ssm"] = L.rmsnorm_init(cfg.d_model, dev)
+        params["ssm"], _ = M.mamba2_init(
+            generator, cfg.d_model, d_state=cfg.ssm_state,
+            headdim=cfg.ssm_headdim, expand=cfg.ssm_expand)
+        return params  # mamba blocks carry no separate MLP
+    # feed-forward half
     params["ln_mlp"] = L.rmsnorm_init(cfg.d_model, dev)
-    params["mlp"] = L.swiglu_init(generator, cfg.d_model, cfg.d_ff)
+    if kind.endswith("_moe"):
+        params["moe"] = M.moe_init(
+            generator, cfg.d_model, cfg.n_experts, cfg.d_ff_expert,
+            cfg.top_k, n_shared=cfg.n_shared_experts,
+            d_ff_shared=cfg.d_ff_shared,
+            n_experts_padded=cfg.n_experts_padded)
+    else:
+        params["mlp"] = L.swiglu_init(generator, cfg.d_model, cfg.d_ff)
     return params
 
 
 def _mlp_apply(cfg, p, x, mode="train"):
     h = L.rmsnorm(x, p["ln_mlp"])
-    fn = L.geglu if cfg.mlp == "geglu" else L.swiglu
-    return x + fn(h, p["mlp"])
+    if "moe" in p:
+        # decode batches are tiny: dropless dispatch (cap = T*k) is cheap
+        # and keeps decode exactly consistent with the full forward
+        out = M.moe_apply(h, p["moe"], top_k=cfg.top_k,
+                          capacity_factor=cfg.capacity_factor,
+                          dropless=(mode == "decode"),
+                          n_experts_real=cfg.n_experts)
+    else:
+        fn = L.geglu if cfg.mlp == "geglu" else L.swiglu
+        out = fn(h, p["mlp"])
+    return x + out
 
 
-def block_apply(cfg, kind, p, x, *, positions, mode, cache=None,
-                enc_out=None, enc_positions=None):
-    """One block forward.  mode: 'train' | 'prefill' | 'decode'.
-    Returns (x, new_cache)."""
-    require_ported(kind)
+def _ssm_meta(cfg):
+    d_inner = cfg.ssm_expand * cfg.d_model
+    return dict(d_inner=d_inner, n_heads=d_inner // cfg.ssm_headdim,
+                headdim=cfg.ssm_headdim, d_state=cfg.ssm_state,
+                d_conv=4, n_groups=1)
+
+
+def _attn_apply(cfg, kind, p, x, *, positions, mode, cache, enc_out,
+                enc_positions):
+    """The attention half of an attention block.  Returns (x, new_cache)."""
     new_cache = cache
     h = L.rmsnorm(x, p["ln_attn"])
     q, k, v = L._project_qkv(
@@ -116,12 +149,61 @@ def block_apply(cfg, kind, p, x, *, positions, mode, cache=None,
             qx, kx, vx, causal=False, kv_block=cfg.kv_block,
             q_positions=positions, kv_positions=enc_positions)
         x = x + L.attn_out(ctx, p["cross"])
+    return x, new_cache
+
+
+def block_apply(cfg, kind, p, x, *, positions, mode, cache=None,
+                enc_out=None, enc_positions=None):
+    """One block forward.  mode: 'train' | 'prefill' | 'decode'.
+    Returns (x, new_cache)."""
+    check_kind(kind)
+    new_cache = cache
+    if kind in ATTN_KINDS:
+        x, new_cache = _attn_apply(
+            cfg, kind, p, x, positions=positions, mode=mode, cache=cache,
+            enc_out=enc_out, enc_positions=enc_positions)
+    elif kind == "rec":
+        h = L.rmsnorm(x, p["ln_rec"])
+        if mode == "decode":
+            out, new_cache = M.rglru_step(h, p["rec"], cache)
+        elif mode == "prefill":
+            out, new_cache = M.rglru_apply(h, p["rec"], return_state=True)
+        else:
+            out = M.rglru_apply(h, p["rec"])
+        x = x + out
+    else:  # ssm
+        h = L.rmsnorm(x, p["ln_ssm"])
+        meta = _ssm_meta(cfg)
+        if mode == "decode":
+            out, new_cache = M.mamba2_step(h, p["ssm"], meta, cache)
+        elif mode == "prefill":
+            out, new_cache = M.mamba2_apply(h, p["ssm"], meta,
+                                            chunk=cfg.ssm_chunk,
+                                            return_state=True)
+        else:
+            out = M.mamba2_apply(h, p["ssm"], meta, chunk=cfg.ssm_chunk)
+        return x + out, new_cache
     return _mlp_apply(cfg, p, x, mode), new_cache
 
 
 def init_block_cache(cfg, kind, batch, cache_len, dtype=torch.bfloat16,
                      device=None):
-    require_ported(kind)
+    """An empty cache of one block: k/v/pos for attention (a ring of
+    ``min(cache_len, window)`` rows for ``local``), the conv state in
+    ``dtype`` and the recurrent state in float32 for ``rec`` and ``ssm``."""
+    check_kind(kind)
+    f32 = dict(dtype=torch.float32, device=device)
+    if kind == "rec":
+        w = cfg.lru_width or cfg.d_model
+        return {"conv": torch.zeros((batch, 3, w), dtype=dtype, device=device),
+                "h": torch.zeros((batch, w), **f32)}
+    if kind == "ssm":
+        meta = _ssm_meta(cfg)
+        conv_dim = meta["d_inner"] + 2 * meta["n_groups"] * meta["d_state"]
+        return {"conv": torch.zeros((batch, meta["d_conv"] - 1, conv_dim),
+                                    dtype=dtype, device=device),
+                "ssm": torch.zeros((batch, meta["n_heads"], meta["headdim"],
+                                    meta["d_state"]), **f32)}
     L_ = min(cache_len, cfg.window) if kind == "local" else cache_len
     shape = (batch, L_, cfg.n_kv_heads, cfg.d_head)
     return {

@@ -7,8 +7,9 @@ It behaves as the reference's engine does, quirks included:
     the last request;
   * prompts are left-padded with token 0 to the longest, and the padding
     is not masked (a short prompt attends to its padding);
-  * the prefill caches are grown to ``cache_len`` with ``pos = -1`` and
-    zero k/v;
+  * the prefill caches are grown to ``cache_len`` (a ``local`` ring to
+    ``min(cache_len, window)``) with ``pos = -1`` and zero k/v; recurrent
+    states pass through;
   * greedy decoding takes the first maximum on a tie (``torch.argmax``);
   * a request stops at its ``max_new_tokens``, or after its ``eos``.
 
@@ -52,7 +53,8 @@ def _ms(start, end) -> float:
 
 def _merge(cap: torch.Tensor, got: torch.Tensor) -> torch.Tensor:
     """``got`` padded at the end of each axis to ``cap``'s shape: -1 for
-    positions, 0 for k and v."""
+    positions, 0 for k and v.  A leaf of ``cap``'s shape (a recurrent
+    block's conv, ssm or h state) is returned as it is."""
     if cap.shape == got.shape:
         return got
     pad = []

@@ -1,5 +1,7 @@
 """The port's LM serving path (``repro_torch.models``, ``repro_torch.serve.lm``)
-against the JAX reference's, on the reduced configs of four families.
+against the JAX reference's, on the reduced configs of every family:
+dense, VLM, encoder-decoder, MoE (qwen2-moe, llama4-maverick), SSM
+(mamba2) and hybrid (recurrentgemma).
 
 The reference initialises the parameters; ``params_from_numpy`` carries
 them over, and the same numpy tokens (and frontend embeddings) go through
@@ -39,7 +41,8 @@ F32_REL = 1e-5
 BF16_REL = 5e-2
 
 ARCHS = ["granite_3_2b", "internlm2_1_8b", "internvl2_1b",
-         "seamless_m4t_medium"]
+         "seamless_m4t_medium", "qwen2_moe_a2_7b", "mamba2_130m",
+         "recurrentgemma_2b", "llama4_maverick_400b_a17b"]
 
 
 def _setup(arch, seed=0, **overrides):
@@ -135,7 +138,9 @@ def test_prefill_and_decode_logits_match_reference(arch):
         _close(got, want, F32_REL)
 
 
-@pytest.mark.parametrize("arch", ["granite_3_2b", "internlm2_1_8b"])
+@pytest.mark.parametrize("arch", ["granite_3_2b", "internlm2_1_8b",
+                                  "recurrentgemma_2b", "mamba2_130m",
+                                  "qwen2_moe_a2_7b"])
 def test_prefill_decode_matches_full_forward(arch):
     """``tests/test_archs_smoke.py::test_prefill_decode_matches_full_forward``
     on the port: [prefill(S); decode x2] equals the full forward's logits."""
@@ -164,6 +169,25 @@ def test_bf16_prefill_matches_reference():
     assert got.dtype == torch.bfloat16
     assert caches[0]["k"].dtype == torch.bfloat16
     _close(got, want, BF16_REL)
+
+
+@pytest.mark.parametrize("arch", ["qwen2_moe_a2_7b", "mamba2_130m",
+                                  "recurrentgemma_2b"])
+def test_bf16_prefill_matches_reference_mixers(arch):
+    """bf16 prefill logits within ``BF16_REL``; the conv states in bf16, the
+    recurrent states in float32, as the reference keeps them."""
+    cfg, ref_model, ref_params, model, params = _setup(
+        arch, seed=2, act_dtype="bfloat16")
+    batch = _batch(cfg, 2, 20, seed=4)
+    want, ref_caches = ref_model.prefill(ref_params, _as_ref(batch))
+    got, caches = model.prefill(params, batch)
+    assert got.dtype == torch.bfloat16
+    _close(got, want, BF16_REL)
+    for c in caches:
+        for name, leaf in c.items():
+            assert leaf.dtype == {"ssm": torch.float32, "h": torch.float32,
+                                  "pos": torch.int32}.get(
+                name, torch.bfloat16), name
 
 
 def test_serve_engine_generates_reference_tokens():
@@ -212,15 +236,115 @@ def test_serve_engine_eos_and_batch_fill():
         eng.generate([Request(prompt=prompt)] * 4)
 
 
-@pytest.mark.parametrize("arch", ["qwen2_moe_a2_7b", "recurrentgemma_2b",
-                                  "mamba2_130m"])
-def test_unported_block_kinds_raise(arch):
+@pytest.mark.parametrize("arch", ["recurrentgemma_2b", "qwen2_moe_a2_7b"])
+def test_serve_engine_generates_reference_tokens_mixers(arch):
+    """The engine's tokens equal the reference engine's on a recurrent and
+    an MoE config (prompts of unequal length: the shorter is padded)."""
+    cfg, ref_model, ref_params, model, params = _setup(arch, 0)
+    reqs = [(np.arange(5) + 1, 8), (np.arange(19) + 3, 4)]
+    want = RefServeEngine(ref_model, ref_params, batch_size=3,
+                          cache_len=32).generate(
+        [RefRequest(prompt=p, max_new_tokens=n) for p, n in reqs])
+    got = ServeEngine(model, params, batch_size=3, cache_len=32).generate(
+        [Request(prompt=p, max_new_tokens=n) for p, n in reqs])
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, np.asarray(w))
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma_2b", "mamba2_130m"])
+def test_grow_caches_keeps_states_and_grows_the_local_ring(arch):
+    """``_grow_caches`` passes conv/ssm/h states of equal shape through
+    unchanged and pads a ``local`` ring (and full attention caches) to
+    ``min(cache_len, window)`` rows, as the reference's ``merge`` does."""
+    cfg, ref_model, ref_params, model, params = _setup(arch, 0)
+    B, S, cache_len = 2, 6, 12
+    tokens = _batch(cfg, B, S, seed=5)["tokens"]
+    _, caches = model.prefill(params, {"tokens": tokens})
+    grown = ServeEngine(model, params, B, cache_len)._grow_caches(caches, S)
+    _, ref_caches = ref_model.prefill(ref_params,
+                                      {"tokens": jnp.asarray(tokens)})
+    want = RefServeEngine(ref_model, ref_params, B, cache_len)._grow_caches(
+        ref_caches, S)
+    sc, tail = want
+    for i, kind in enumerate(cfg.pattern[j % len(cfg.pattern)]
+                             for j in range(cfg.n_layers)):
+        glen = len(cfg.pattern)
+        g, j = divmod(i, glen)
+        ref_c = (jax.tree.map(lambda a: a[g], sc[j]) if g < cfg.n_layers // glen
+                 else tail[j])
+        assert set(grown[i]) == set(ref_c)
+        for name, leaf in grown[i].items():
+            assert leaf.shape == tuple(ref_c[name].shape), (kind, name)
+            if name in ("conv", "ssm", "h"):
+                assert leaf is caches[i][name]
+            np.testing.assert_allclose(leaf.float().numpy(),
+                                       np.asarray(ref_c[name], np.float32),
+                                       rtol=2e-5, atol=2e-5)
+        if kind == "local":
+            assert grown[i]["k"].shape[1] == min(cache_len, cfg.window)
+            assert (grown[i]["pos"][:, S:] == -1).all()
+
+
+def test_recurrentgemma_tail_blocks_carry_over():
+    """26 = 8 x (rec, rec, local) + 2: at 8 = 2 x 3 + 2 layers the two tail
+    ``rec`` blocks become layers 6 and 7 and the logits still match."""
+    cfg, ref_model, ref_params, model, params = _setup(
+        "recurrentgemma_2b", seed=4, n_layers=8)
+    assert len(params["layers"]) == 8
+    tail = ref_params["layers"]["tail"]
+    assert len(tail) == 2
+    for j in range(2):
+        np.testing.assert_array_equal(
+            params["layers"][6 + j]["rec"]["wa"].numpy(),
+            np.asarray(tail[j]["rec"]["wa"]))
+    batch = _batch(cfg, 2, 10, seed=6)
+    want, _ = ref_model.prefill(ref_params, _as_ref(batch))
+    got, caches = model.prefill(params, batch)
+    _close(got, want, F32_REL)
+    assert [sorted(c) for c in caches[5:]] == [["k", "pos", "v"],
+                                              ["conv", "h"], ["conv", "h"]]
+
+
+@pytest.mark.parametrize("arch", base.all_archs())
+def test_every_registered_config_serves_reduced(arch):
+    """Every registered config's reduced form builds on the CPU, prefills
+    and takes a decode step, with finite logits of the vocabulary's width."""
     cfg = base.get(arch).reduced()
-    with pytest.raises(NotImplementedError, match="next slice"):
-        build_model(cfg, device="cpu")
-    kind = next(k for k in cfg.pattern if k in T.NEXT_SLICE_KINDS)
-    with pytest.raises(NotImplementedError, match="mixers"):
-        T.block_init(torch.Generator(), cfg, kind)
+    model = build_model(cfg, device="cpu")
+    params = model.init(torch.Generator().manual_seed(3))
+    B, S = 2, 8
+    batch = _batch(cfg, B, S, seed=7)
+    logits, caches = model.prefill(params, batch)
+    assert logits.shape == (B, cfg.vocab) and torch.isfinite(logits).all()
+    enc_out = enc_pos = None
+    if cfg.enc_layers:
+        _, fe = model._embed_inputs(params, batch)
+        enc_out, enc_pos = model._encode(params, fe)
+    S0 = S + (cfg.n_frontend_tokens if cfg.frontend and not cfg.enc_layers
+              else 0)
+    caches = _graft(model, B, S0 + 1, caches)
+    step, _ = model.decode_step(params, batch["tokens"][:, -1:], caches,
+                                np.full((B,), S0, np.int32),
+                                enc_out=enc_out, enc_positions=enc_pos)
+    assert step.shape == (B, cfg.vocab) and torch.isfinite(step).all()
+
+
+@pytest.mark.parametrize("entry", ["build_model", "block_init", "block_apply",
+                                   "init_block_cache"])
+def test_unknown_block_kind_raises(entry):
+    cfg = base.get("granite_3_2b").reduced()
+    with pytest.raises(ValueError, match="mlstm"):
+        if entry == "build_model":
+            build_model(dataclasses.replace(cfg, pattern=("attn", "mlstm")),
+                        device="cpu")
+        elif entry == "block_init":
+            T.block_init(torch.Generator(), cfg, "mlstm")
+        elif entry == "block_apply":
+            T.block_apply(cfg, "mlstm", {}, torch.zeros(1, 1, cfg.d_model),
+                          positions=torch.zeros(1, 1, dtype=torch.int32),
+                          mode="prefill")
+        else:
+            T.init_block_cache(cfg, "mlstm", 1, 4)
 
 
 def test_port_init_matches_converted_layout_and_is_seeded():

@@ -1,30 +1,37 @@
-"""Readings behind the bounds of gate (b) of ``chip_smoke.py``'s phase
-``lm_serve``: granite-3-2b at full width cut to depth 2, the same seeded
-weights as the phase, the card against the port's CPU path, sound and with
-a fault injected on the card's side.
+"""Readings behind the bounds of gate (b) of ``chip_smoke.py``'s phases
+``lm_serve`` and ``lm_mixers``: one config at full width cut to one
+pattern group (``chip_smoke.gate_layers``: at least 2 layers), the same
+seeded weights as the phase, the card against the port's CPU path, sound
+and with a fault injected on the card's side.
 
 Run from the checkout root on a machine with a card::
 
-    python3 tools/lm_gate_readings.py [N_TOKEN_SETS]
+    python3 tools/lm_gate_readings.py [--arch ARCH] [N_TOKEN_SETS]
 
-Token sets: the phase's own (2, 64) tokens, then ``N_TOKEN_SETS - 1`` more
-from seeds 1, 2, ...  For each set it prints one JSON line with
-``chip_smoke.logit_errs``'s readings (``max_rel``, ``rms_rel`` of the
-prefill logits and of 16 decode steps' logits) for
+``ARCH`` defaults to ``chip_smoke.LM_ARCH`` (granite-3-2b); the phase
+``lm_mixers`` reads its bounds with ``--arch recurrentgemma_2b``,
+``mamba2_130m`` and ``qwen2_moe_a2_7b``.  Token sets: the phase's own
+(2, 64) tokens, then ``N_TOKEN_SETS - 1`` more from seeds 1, 2, ...  For
+each set it prints one JSON line with ``chip_smoke.logit_errs``'s readings
+(``max_rel``, ``rms_rel`` of the prefill logits and of 16 decode steps'
+logits) for
 
-  * ``float32`` and ``bfloat16``: the port as it stands;
+  * ``float32`` and ``bfloat16``: the port as it stands (for an MoE config
+    also ``routing_flips``: tokens routed to other experts on the card
+    than on the CPU, over ``routed_tokens``);
   * ``bf16_vs_f32``: the card's bf16 logits against its float32 logits;
   * ``tf32``: float32 with TF32 products allowed;
   * ``reduced_reduction``: bf16 with cuBLAS's reduced-precision bf16
     reductions allowed;
   * ``no_upcast``: bf16 with every ``Tensor.float()`` of the model a no-op
-    (attention scores, softmax and norms left in bf16);
+    (attention scores, softmax, norms, routing and recurrent states left
+    in bf16; a product of a float32 and a bf16 operand runs in bf16);
 
 then a ``summary`` line: per metric the largest sound reading and each
 fault's smallest, and the last line the card's ``nvidia-smi`` name and
-power limit.  About 40 s on one H100.
+power limit.  About 40 s on one H100 for granite-3-2b.
 """
-import copy
+import argparse
 import dataclasses
 import json
 import os
@@ -40,16 +47,23 @@ import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
 from repro_torch.configs import base  # noqa: E402
-from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models.model_zoo import build_model  # noqa: E402
+
+_PRODUCTS = ("matmul", "__matmul__", "bmm")   # torch.* and Tensor.* alike
 
 
 class NoUpcast(torch.overrides.TorchFunctionMode):
-    """``Tensor.float()`` returns its tensor unchanged."""
+    """``Tensor.float()`` returns its tensor unchanged, and a product of
+    operands of two float dtypes runs in the narrower one."""
 
     def __torch_function__(self, func, types, args=(), kwargs=None):
         if func is torch.Tensor.float:
             return args[0]
+        if (getattr(func, "__name__", "") in _PRODUCTS
+                and args[0].dtype != args[1].dtype):
+            narrow = min((a.dtype for a in args[:2]),
+                         key=lambda d: torch.finfo(d).bits)
+            args = (args[0].to(narrow), args[1].to(narrow)) + tuple(args[2:])
         return func(*args, **(kwargs or {}))
 
 
@@ -63,23 +77,25 @@ def token_sets(vocab: int, n: int):
 
 
 def main() -> int:
-    n_sets = int(sys.argv[1]) if len(sys.argv) > 1 else 5
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("n_sets", nargs="?", type=int, default=5)
+    ap.add_argument("--arch", default=cs.LM_ARCH)
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("lm_gate_readings: no CUDA device", file=sys.stderr)
         return 1
     dev = torch.device("cuda")
-    cfg = base.get(cs.LM_ARCH)
+    cfg = base.get(args.arch)
+    depth = cs.gate_layers(cfg)
     params = build_model(cfg, device=dev).init(
         torch.Generator(device=dev).manual_seed(cs.LM_SEED))
-    cut = L.ParamTree({"embed": params["embed"],
-                       "layers": [params["layers"][i] for i in range(2)],
-                       "ln_f": params["ln_f"]})
+    cut = cs.cut_params(params, depth)
     del params
     torch.cuda.empty_cache()
     steps = cs.LM_DECODE_STEPS
-    cfgs = {dt: dataclasses.replace(cfg, n_layers=2, act_dtype=dt)
+    cfgs = {dt: dataclasses.replace(cfg, n_layers=depth, act_dtype=dt)
             for dt in ("float32", "bfloat16")}
-    cut_cpu = copy.deepcopy(cut).to("cpu")
+    cut_cpu = cs.cpu_copy(cut)
 
     def card(dt, tokens, flag=None, mode=None):
         model = build_model(cfgs[dt], device=dev)   # resets both flags
@@ -94,19 +110,24 @@ def main() -> int:
             build_model(cfgs[dt], device=dev)
 
     rows = []
-    for name, tokens in token_sets(cfg.vocab, n_sets):
+    for name, tokens in token_sets(cfg.vocab, args.n_sets):
         row = dict(tokens=name)
-        cpu, cpu_s = {}, {}
+        cpu, cpu_s, sound = {}, {}, {}
         for dt in cfgs:
             t0 = time.perf_counter()
-            cpu[dt] = cs.lm_logits(build_model(cfgs[dt], device="cpu"),
-                                   cut_cpu, tokens, steps)
+            with cs.MoeProbe() as on_cpu:
+                cpu[dt] = cs.lm_logits(build_model(cfgs[dt], device="cpu"),
+                                       cut_cpu, tokens, steps)
             cpu_s[dt] = time.perf_counter() - t0
-        row["cpu_s"] = cpu_s
-        sound = {dt: card(dt, tokens) for dt in cfgs}
-        for dt in cfgs:
+            with cs.MoeProbe() as on_card:
+                sound[dt] = card(dt, tokens)
             row[dt] = dict(cs.logit_errs(sound[dt], cpu[dt]),
                            cache_dtype=sound[dt][2])
+            if on_card.calls:
+                row[dt]["routing_flips"] = on_card.flips(on_cpu)
+                row[dt]["routed_tokens"] = sum(
+                    c["experts"].shape[0] for c in on_card.calls)
+        row["cpu_s"] = cpu_s
         row["bf16_vs_f32"] = cs.logit_errs(sound["bfloat16"],
                                            sound["float32"])
         row["tf32"] = cs.logit_errs(card("float32", tokens, "allow_tf32"),
@@ -119,15 +140,19 @@ def main() -> int:
         print(json.dumps(row), flush=True)
         rows.append(row)
 
-    metrics = list(rows[0]["float32"])[:-1]
+    metrics = list(rows[0]["bf16_vs_f32"])
     summary = {dt: {m: max(r[dt][m] for r in rows) for m in metrics}
                for dt in cfgs}
     for fault in ("tf32", "reduced_reduction", "no_upcast"):
         summary[fault] = {m: min(r[fault][m] for r in rows) for m in metrics}
     summary["bf16_vs_f32"] = {m: max(r["bf16_vs_f32"][m] for r in rows)
                               for m in metrics}
-    print(json.dumps(dict(summary=summary, token_sets=len(rows),
-                          decode_steps=steps)), flush=True)
+    if "routing_flips" in rows[0]["bfloat16"]:
+        summary["routing_flips"] = {
+            dt: [r[dt]["routing_flips"] for r in rows] for dt in cfgs}
+    print(json.dumps(dict(summary=summary, arch=args.arch, layers=depth,
+                          token_sets=len(rows), decode_steps=steps)),
+          flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
