@@ -6,7 +6,7 @@ Run from the root of a checkout, on a machine with one CUDA card::
 
 It builds the CUDA tile kernels from ``src/repro_torch/kernels/csrc`` into
 ``build/repro_torch_kernels/`` (one ``nvcc`` per kernel, all at once), then
-runs fifteen phases, each printing JSON lines:
+runs sixteen phases, each printing JSON lines:
 
   1. device    the card's name and power limit (``nvidia-smi``), versions;
   2. build     kernels built and seconds;
@@ -132,7 +132,33 @@ runs fifteen phases, each printing JSON lines:
                gate (a) runs MoE prefill at capacity ``n_experts /
                top_k``, where no token can drop.  For MoE the line also
                gives the served prefill's dropped share at the config's
-               capacity.
+               capacity;
+ 16. lm_train  the port's ``repro_torch.train.Trainer`` at full width, one
+               line per config, the memory of each freed before the next:
+               granite-3-2b (vocabulary 49155: the full-logits loss) and
+               recurrentgemma-2b (256000: the chunked cross-entropy, and
+               the RG-LRU scan's backward), AdamW over fp32 masters,
+               bf16 activations, remat ``"full"``, 6 steps of 8 x 512
+               tokens (``LM_TRAIN_TRAFFIC``, seed 2022), at full depth
+               where 16 B a parameter fit beside
+               ``LM_TRAIN_HEADROOM_BYTES`` (a cut prints as ``reduced``).
+               Gates: (a) one pattern group deep, the card's loss and
+               gradients against the port's CPU path on the same weights
+               and a 2 x 64 batch, float32 within ``LM_TRAIN_TOL`` (with
+               the ``tf32`` fault's readings printed and caught), bf16
+               gated per config where ``LM_TRAIN_TOL`` has bounds; (b) on
+               granite at that depth, 6 straight steps against a run
+               crashed at step 3 after its checkpoint (under
+               ``build/lm_train_ckpt``, deleted after) and resumed, params
+               and losses within 1e-6 (the reference's contract), bitwise
+               equality printed; (c) at full depth the last loss is below
+               the first.  It prints init s, master and optimizer-state
+               bytes, peak memory, step ms (median of the steps after the
+               first) and tokens/s beside the step's FLOP bound, the
+               optimizer's ms beside its byte bound, checkpoint save and
+               restore s, and a profiled step's launches and busy share.
+               Training launches no stencil kernel, and the phase checks
+               that K1/K2's counts do not move.
 
 Then one JSON line lists every kernel with its launches, error and times,
 and the last line is ``{"ok": true, "device": {...}}``.  Any failure
@@ -231,6 +257,35 @@ LM_CPU_TOL = {
 }
 LM_HEADROOM_BYTES = 12e9   # activations, bf16 weight copies, caches, logits
 H100_BF16_FLOPS = 989e12   # NVIDIA data sheet, dense
+# phase lm_train: the port's Trainer at full width, AdamW with fp32
+# masters, bf16 activations, remat "full"; pre-training micro-batches of a
+# chat-length context (4096 tokens a step).  Gate (a) holds the card's
+# loss and gradients to the port's CPU path one pattern group deep on
+# LM_TRAIN_GATE_BATCH: ``loss_rel`` |loss - cpu| / |cpu|, ``grad_max_rel``
+# the largest |grad - cpu| of any leaf over the tree's largest |cpu|,
+# ``grad_rms_rel`` over the whole tree.  Readings over 5 token sets of
+# tools/lm_gate_readings.py --train on an H100 (PERF.md): float32 sound
+# loss <= 8.8e-8, gradients max <= 4.0e-6, with TF32 products gradients
+# >= 1.38e-3 (the phase checks that its gradient bound catches tf32) but
+# loss only >= 2.3e-7: the mean over 126 tokens averages the products'
+# rounding out, so the loss bound (the reference's 1e-5) cannot see TF32.
+# bf16 (sound; every upcast dropped, ``no_upcast``): granite-3-2b loss
+# <= 2.19e-5 (>= 2.9e-4), gradient rms <= 1.14e-2 (>= 2.17e-2);
+# recurrentgemma-2b gradient rms <= 1.58e-2 (>= 2.97e-2), its loss
+# readings overlap (sound up to 9.0e-6, no_upcast from 3.4e-6).
+LM_TRAIN_ARCHS = ("granite_3_2b", "recurrentgemma_2b")
+LM_TRAIN_TRAFFIC = dict(steps=6, batch=8, seq=512, lr=3e-4, warmup=2)
+LM_TRAIN_GATE_BATCH = (2, 64)
+LM_TRAIN_TOL = {
+    "float32": dict(loss_rel=1e-5, grad_max_rel=1e-4),
+    "bfloat16": {
+        "granite_3_2b": dict(loss_rel=1e-4, grad_rms_rel=1.6e-2),
+        "recurrentgemma_2b": dict(grad_rms_rel=2.2e-2),
+    },
+}
+# 16 B a parameter live beside this: the remat's recomputed group, the
+# loss's logits or chunks, the optimizer's temporaries of the largest leaf
+LM_TRAIN_HEADROOM_BYTES = 20e9
 
 
 def emit(**fields) -> None:
@@ -384,10 +439,13 @@ def lm_vs_cpu(dev, cfg, params, tokens, steps) -> dict:
     return out
 
 
-def lm_depth(cfg, dev) -> int:
-    """The most layers of ``cfg`` whose fp32 masters, with
-    ``LM_HEADROOM_BYTES`` beside them, fit in the card's free memory.
-    Blocks are counted by initialising one pattern group on the card."""
+def lm_depth(cfg, dev, bytes_per_param: int = 4,
+             headroom: float = LM_HEADROOM_BYTES) -> int:
+    """The most layers of ``cfg`` whose ``bytes_per_param`` bytes a
+    parameter (4: fp32 masters; 16: masters, gradients and AdamW's two
+    moments), with ``headroom`` beside them, fit in the card's free
+    memory.  Blocks are counted by initialising one pattern group on the
+    card."""
     import torch
 
     from repro_torch.models import transformer as T
@@ -397,10 +455,11 @@ def lm_depth(cfg, dev) -> int:
              for kind in cfg.pattern]
     torch.cuda.empty_cache()
     fixed = cfg.vocab * cfg.d_model * (1 if cfg.tie_embeddings else 2)
-    free = torch.cuda.mem_get_info(dev)[0] - LM_HEADROOM_BYTES
+    free = torch.cuda.mem_get_info(dev)[0] - headroom
     n = 0
     while (n < cfg.n_layers
-           and 4 * (fixed + sum(group[i % len(group)] for i in range(n + 1)))
+           and bytes_per_param * (fixed + sum(group[i % len(group)]
+                                              for i in range(n + 1)))
            <= free):
         n += 1
     return n
@@ -412,6 +471,32 @@ def _leaves(tree):
             yield from _leaves(v)
     else:
         yield tree
+
+
+def product_params(cfg, params) -> int:
+    """The parameters that a token's forward multiplies (2 operations
+    each): every matrix but the convolutions and biases, the unembedding
+    but not an untied embedding (a lookup), and of an MoE layer's experts
+    only the ``top_k`` routed."""
+    n = sum(p.numel() for name, p in params.named_parameters()
+            if p.dim() >= 2 and name.rsplit(".", 1)[-1]
+            not in ("conv_w", "bq", "bk", "bv"))
+    if not cfg.tie_embeddings:
+        n -= cfg.vocab * cfg.d_model
+    kinds = [cfg.pattern[i % len(cfg.pattern)] for i in range(cfg.n_layers)]
+    n_moe = sum(k.endswith("_moe") for k in kinds)
+    return n - n_moe * (cfg.n_experts_padded - cfg.top_k) * 3 \
+        * cfg.d_model * cfg.d_ff_expert
+
+
+def attention_ops(cfg, B: int, S: int) -> int:
+    """The score and PV products of one forward over ``B`` sequences of
+    ``S`` tokens: the causal pairs (window-limited for local attention)."""
+    kinds = [cfg.pattern[i % len(cfg.pattern)] for i in range(cfg.n_layers)]
+    pairs = sum(sum(min(q + 1, cfg.window) if k == "local" else q + 1
+                    for q in range(S))
+                for k in kinds if k in ("attn", "attn_moe", "local"))
+    return 4 * B * cfg.n_heads * cfg.d_head * pairs
 
 
 def lm_serve(dev, cfg, traffic: dict, hbm_bw: float, kernel_launches) -> dict:
@@ -550,20 +635,8 @@ def lm_serve(dev, cfg, traffic: dict, hbm_bw: float, kernel_launches) -> dict:
     # reference computes; an MoE layer's routed experts only) and the causal
     # attention pairs (window-limited for local attention), at the bf16 rate
     decode_bound_ms = param_bytes / hbm_bw * 1e3
-    mm_params = sum(p.numel() for n, p in params.named_parameters()
-                    if p.dim() >= 2 and n.rsplit(".", 1)[-1]
-                    not in ("conv_w", "bq", "bk", "bv"))
-    if not cfg.tie_embeddings:
-        mm_params -= cfg.vocab * cfg.d_model     # the embedding is a lookup
-    kinds = [cfg.pattern[i % len(cfg.pattern)] for i in range(cfg.n_layers)]
-    n_moe = sum(k.endswith("_moe") for k in kinds)
-    mm_params -= n_moe * (cfg.n_experts_padded - cfg.top_k) * 3 \
-        * cfg.d_model * cfg.d_ff_expert
-    pairs = sum(sum(min(q + 1, cfg.window) if k == "local" else q + 1
-                    for q in range(S))
-                for k in kinds if k in ("attn", "attn_moe", "local"))
-    prefill_ops = 2 * mm_params * B * S + 4 * B * cfg.n_heads * cfg.d_head \
-        * pairs
+    prefill_ops = 2 * product_params(cfg, params) * B * S \
+        + attention_ops(cfg, B, S)
     prefill_bound_ms = max(param_bytes / hbm_bw,
                            prefill_ops / H100_BF16_FLOPS) * 1e3
     check(kernel_launches() == launches_before,
@@ -628,6 +701,337 @@ def lm_mixers(dev, traffic: dict, hbm_bw: float, kernel_launches):
         t0 = time.perf_counter()
         got = lm_serve(dev, cfg, traffic, hbm_bw, kernel_launches)
         yield dict(got, reduced=reduced, phase_s=time.perf_counter() - t0)
+
+
+def device_us(evt) -> float:
+    """A profiler average's own device time (the attribute's name differs
+    across torch versions)."""
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, name):
+            return float(getattr(evt, name))
+    return 0.0
+
+
+def loss_and_grads(model, params, batch):
+    """``model.loss`` of ``batch`` and the gradient of every parameter,
+    as a float and float32 CPU tensors keyed by path (zeros for a
+    parameter the loss does not use)."""
+    import torch
+
+    from repro_torch.models import layers as L
+
+    named = L.named_leaves(params.requires_grad_())
+    loss = model.loss(params, batch)
+    grads = torch.autograd.grad(loss, list(named.values()), allow_unused=True)
+    return float(loss.detach()), {
+        k: (torch.zeros_like(p) if g is None else g).float().cpu()
+        for (k, p), g in zip(named.items(), grads)}
+
+
+def grad_errs(got, ref) -> dict:
+    """Two :func:`loss_and_grads` results: ``loss_rel`` (|loss - ref| /
+    |ref|), ``grad_max_rel`` (the largest |grad - ref| of any leaf over
+    the largest |ref| of the whole tree) and ``grad_rms_rel`` (||grad -
+    ref|| / ||ref|| over the whole tree)."""
+    (loss, grads), (ref_loss, ref_grads) = got, ref
+    d2 = sum(float(((grads[k] - r).double() ** 2).sum())
+             for k, r in ref_grads.items())
+    r2 = sum(float((r.double() ** 2).sum()) for r in ref_grads.values())
+    return dict(
+        loss_rel=abs(loss - ref_loss) / abs(ref_loss),
+        grad_max_rel=max(float((grads[k] - r).abs().max())
+                         for k, r in ref_grads.items())
+        / max(float(r.abs().max()) for r in ref_grads.values()),
+        grad_rms_rel=math.sqrt(d2 / r2))
+
+
+def gate_batch(cfg, step: int, device):
+    """Gate (a)'s batch: step ``step`` of the synthetic data at
+    ``LM_TRAIN_GATE_BATCH``, seed ``LM_SEED``."""
+    from repro_torch.data import SyntheticLMData
+
+    B, S = LM_TRAIN_GATE_BATCH
+    return SyntheticLMData(vocab=cfg.vocab, batch=B, seq=S, seed=LM_SEED,
+                           device=device).batch_at(step)
+
+
+def gate_params(dev, cfg):
+    """``cfg``'s first :func:`gate_layers` layers at full width, from the
+    phases' seeded generator on the card (the first layers of the
+    full-depth init: its embedding and blocks are drawn in order)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models.model_zoo import build_model
+
+    cut = dataclasses.replace(cfg, n_layers=gate_layers(cfg))
+    return build_model(cut, device=dev).init(
+        torch.Generator(device=dev).manual_seed(LM_SEED)), cut
+
+
+def lm_train(dev, cfg, hbm_bw: float, build_dir: Path, kernel_launches,
+             crash_resume: bool) -> dict:
+    """The port's ``Trainer`` on ``cfg`` at full width on ``dev``: gates
+    (a) card vs CPU loss and gradients one pattern group deep, (b) with
+    ``crash_resume``, a crash and resume at that depth equal to a straight
+    run, (c) at the depth that fits, the loss falls; any failure raises.
+    Phase ``lm_train`` runs it on each of LM_TRAIN_ARCHS."""
+    import dataclasses
+    import gc
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint import (
+        latest_step,
+        restore_checkpoint,
+        save_checkpoint,
+    )
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.train import TrainConfig, Trainer
+
+    name = cfg.name
+    launches_before = kernel_launches()
+
+    # (a) the card against the CPU on the same weights and batch, one
+    # pattern group deep: float32 gated, with the tf32 fault's readings
+    # beside the bounds; bf16 gated where LM_TRAIN_TOL has its bounds
+    cut, cut_cfg = gate_params(dev, cfg)
+    cut_cpu = cpu_copy(cut)
+    batch, batch_cpu = gate_batch(cfg, 0, dev), gate_batch(cfg, 0, "cpu")
+    gate_a = {}
+    for dt in dict.fromkeys(("float32", cfg.act_dtype)):
+        c = dataclasses.replace(cut_cfg, act_dtype=dt)
+        cpu = loss_and_grads(build_model(c, device="cpu"), cut_cpu, batch_cpu)
+        model = build_model(c, device=dev)
+        got = grad_errs(loss_and_grads(model, cut, batch), cpu)
+        tol = LM_TRAIN_TOL[dt].get(name, {}) if dt != "float32" \
+            else LM_TRAIN_TOL[dt]
+        if dt == "float32":
+            torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                tf32 = grad_errs(loss_and_grads(model, cut, batch), cpu)
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = False
+            got["tf32"] = tf32
+            check(tf32["grad_max_rel"] > tol["grad_max_rel"],
+                  f"{name} (a): the bounds {tol} do not catch tf32 {tf32}")
+        check(all(math.isfinite(v) for v in got.values()
+                  if isinstance(v, float))
+              and all(got[k] <= tol[k] for k in tol),
+              f"{name} (a) {dt}: card vs CPU {got}, bounds {tol}")
+        gate_a[dt] = dict(got, tol=tol or "none (readings printed)")
+    del cut, cut_cpu, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    traffic = dict(LM_TRAIN_TRAFFIC, seed=LM_SEED, log_every=10 ** 9)
+
+    def params_cpu(state):
+        return {k: p.detach().cpu() for k, p in
+                state["params"].named_parameters()}
+
+    # (b) crash and resume at gate (a)'s depth: 6 straight steps (twice:
+    # are two runs bitwise?), then a crash at step 3 after the checkpoint
+    # of step 3, and a resume to step 6; the checkpoints live under
+    # build_dir and are deleted after
+    gate_b = None
+    if crash_resume:
+        model = build_model(cut_cfg, device=dev)
+        straight = []
+        for _ in range(2):
+            state, losses = Trainer(model, TrainConfig(**traffic)).run()
+            straight.append((params_cpu(state), losses))
+            del state
+        shutil.rmtree(build_dir, ignore_errors=True)
+        try:
+            crashy = Trainer(model, TrainConfig(
+                **traffic, ckpt_dir=str(build_dir), ckpt_every=3,
+                fail_at_step=3))
+            try:
+                crashy.run()
+                crashed = False
+            except RuntimeError as e:
+                crashed = "injected failure at step 3" in str(e)
+            check(crashed and latest_step(str(build_dir)) == 3,
+                  f"{name} (b): no crash at step 3 after its checkpoint")
+            state, losses = Trainer(model, TrainConfig(
+                **traffic, ckpt_dir=str(build_dir), ckpt_every=3)).run()
+            resumed = params_cpu(state)
+            want, want_losses = straight[0]
+            close = all(torch.allclose(resumed[k], w, rtol=1e-6, atol=1e-6)
+                        for k, w in want.items()) and np.allclose(
+                losses, want_losses[3:], rtol=1e-6, atol=1e-6)
+            check(close and len(losses) == 3,
+                  f"{name} (b): resumed losses {losses}, straight "
+                  f"{want_losses}")
+            # one save and restore of the whole state, timed
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            path = save_checkpoint(str(build_dir), 99, state)
+            save_s = time.perf_counter() - t0
+            nbytes = sum(f.stat().st_size for f in Path(path).iterdir())
+            t0 = time.perf_counter()
+            restore_checkpoint(str(build_dir), 99, state)
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+        finally:
+            shutil.rmtree(build_dir, ignore_errors=True)
+        gate_b = dict(
+            layers=cut_cfg.n_layers, steps=traffic["steps"], crash_at=3,
+            losses_straight=want_losses, losses_resumed=losses,
+            resumed_bitwise=all(torch.equal(resumed[k], w)
+                                for k, w in want.items())
+            and losses == want_losses[3:],
+            straight_repeat_bitwise=straight[0][1] == straight[1][1] and all(
+                torch.equal(straight[1][0][k], w) for k, w in want.items()),
+            checkpoint_bytes=nbytes, save_s=save_s, restore_s=restore_s)
+        del model, state, straight, resumed
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (c) the traffic at the depth that fits: the loss falls
+    depth = lm_depth(cfg, dev, 16, LM_TRAIN_HEADROOM_BYTES)
+    check(depth >= gate_layers(cfg), f"{name}: {depth} layers fit")
+    reduced = None
+    if depth < cfg.n_layers:
+        reduced = dict(n_layers=[cfg.n_layers, depth],
+                       why="16 B a parameter beside LM_TRAIN_HEADROOM_BYTES "
+                           "exceed the card's free memory")
+        cfg = dataclasses.replace(cfg, n_layers=depth)
+    model = build_model(cfg, device=dev)
+    tr = Trainer(model, TrainConfig(**traffic))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = tr.init_state()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    params = state["params"]
+    n_params = sum(p.numel() for p in params.parameters())
+    master_bytes = sum(p.numel() * p.element_size()
+                       for p in params.parameters())
+    opt_bytes = sum(t.numel() * t.element_size()
+                    for t in _leaves(state["opt"]))
+    check(all(p.dtype == torch.float32 for p in params.parameters()),
+          f"{name}: the masters are not float32")
+
+    step_s = []
+    step = tr.train_step
+
+    def timed_step(*args):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = step(*args)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        return out
+
+    tr.train_step = timed_step
+    state, losses = tr.run(state)
+    peak_bytes = torch.cuda.max_memory_allocated()
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"{name} (c): losses {losses}")
+    with torch.no_grad():      # step 0's batch again, after the run
+        first_batch_after = float(model.loss(state["params"],
+                                             tr.data.batch_at(0)))
+
+    # one more step with the optimizer's update timed alone, then one
+    # under the profiler: its launches and the card's busy share
+    tr.train_step = step
+    update = tr.optimizer.update
+    opt_s = []
+
+    def timed_update(*args):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = update(*args)
+        torch.cuda.synchronize()
+        opt_s.append(time.perf_counter() - t)
+        return out
+
+    tr.optimizer = dataclasses.replace(tr.optimizer, update=timed_update)
+    n = traffic["steps"]
+    step(state["params"], state["opt"], tr.data.batch_at(n), n)
+    tr.optimizer = dataclasses.replace(tr.optimizer, update=update)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        step(state["params"], state["opt"], tr.data.batch_at(n + 1), n + 1)
+        b.record()
+        b.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    window_ms = a.elapsed_time(b)
+    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    ops = sorted(((e.key, device_us(e)) for e in prof.key_averages()
+                  if e.key.startswith("aten::") and device_us(e) > 0),
+                 key=lambda t: -t[1])
+    profile = (dict(launches=len(kernels), device_busy_share=busy_ms / window_ms,
+                    ms=window_ms, top_ops=[
+                        dict(op=k, share=us / 1e3 / busy_ms)
+                        for k, us in ops[:8]])
+               if kernels else "not measured")
+
+    # bounds: 8 N T (forward, the remat's forward, backward) at the bf16
+    # rate, N the parameters in products, plus 4x the attention products;
+    # the optimizer reads 16 B and writes 12 B a parameter
+    T_ = traffic["batch"] * traffic["seq"]
+    step_ops = 8 * product_params(cfg, params) * T_ \
+        + 4 * attention_ops(cfg, traffic["batch"], traffic["seq"])
+    step_bound_ms = step_ops / H100_BF16_FLOPS * 1e3
+    opt_bound_ms = 28 * n_params / hbm_bw * 1e3
+    step_ms = statistics.median(step_s[1:]) * 1e3
+    check(kernel_launches() == launches_before,
+          f"{name}: the training path launched a stencil kernel")
+    out = dict(
+        arch=name, layers=cfg.n_layers, reduced=reduced, d_model=cfg.d_model,
+        vocab=cfg.vocab, act_dtype=cfg.act_dtype, remat=cfg.remat,
+        optimizer=cfg.optimizer,
+        loss_path="chunked" if cfg.vocab >= model.CHUNKED_XENT_MIN_VOCAB
+        else "full logits",
+        params=n_params, master_bytes=master_bytes, opt_state_bytes=opt_bytes,
+        init_s=init_s, traffic=traffic, losses=losses,
+        step_ms=step_ms, first_step_ms=step_s[0] * 1e3,
+        tokens_per_s=T_ / step_ms * 1e3, step_flop_bound_ms=step_bound_ms,
+        step_bound_share=step_bound_ms / step_ms,
+        optimizer_ms=opt_s[0] * 1e3, optimizer_bound_ms=opt_bound_ms,
+        optimizer_bound_by="bytes", peak_bytes=peak_bytes,
+        step_profile=profile,
+        gate_a=dict(layers=gate_layers(cfg),
+                    tokens=list(LM_TRAIN_GATE_BATCH), **gate_a),
+        gate_b=gate_b if gate_b is not None else "not run (granite only)",
+        gate_c=dict(first=losses[0], last=losses[-1],
+                    first_batch_after=first_batch_after),
+        stencil_kernel_launches=kernel_launches() - launches_before,
+    )
+    del model, tr, state, params
+    return out
+
+
+def lm_train_phase(dev, hbm_bw: float, build_dir: Path, kernel_launches):
+    """Phase ``lm_train``: :func:`lm_train` on each of LM_TRAIN_ARCHS in
+    turn (gate (b) on the first), the memory of each freed before the
+    next.  Yields one result per config."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import base as arch_configs
+
+    for i, arch in enumerate(LM_TRAIN_ARCHS):
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        got = lm_train(dev, arch_configs.get(arch), hbm_bw, build_dir,
+                       kernel_launches, crash_resume=i == 0)
+        yield dict(got, phase_s=time.perf_counter() - t0)
 
 
 def cold_start_child(store_dir: str, build_root: str, out_npy: str,
@@ -1519,6 +1923,12 @@ def main() -> int:
     # ---- 15. lm_mixers: the MoE, SSM and hybrid families ------------------
     for got in lm_mixers(dev, LM_TRAFFIC, gpu.hbm_bw, kernel_launches):
         emit(phase="lm_mixers", nvidia_smi=smi, **got)
+
+    # ---- 16. lm_train: the port's Trainer at full width ------------------
+    for got in lm_train_phase(dev, gpu.hbm_bw,
+                              root / "build" / "lm_train_ckpt",
+                              kernel_launches):
+        emit(phase="lm_train", nvidia_smi=smi, **got)
 
     kernels = [
         dict(name="stencil_cuda", route="cuda",

@@ -11,6 +11,11 @@ port's stack is flat, so ``scanned[j][g]`` becomes layer
 two tail ``rec`` blocks as layers 24 and 25).  Every block's subtree
 (attention, MLP, experts with router and shared expert, SSD, RG-LRU)
 keeps its names and layouts.
+
+:func:`state_from_numpy` carries a whole reference Trainer state over the
+same way: the parameters, the optimizer's moments (AdamW's ``m``/``v``,
+Adafactor's per-parameter ``{vr, vc}`` or ``{v}``, each in the
+parameters' tree) and the step.
 """
 from __future__ import annotations
 
@@ -48,10 +53,9 @@ def _unstack(stack: Mapping, pattern, n_layers: int) -> list:
     return blocks + tail
 
 
-def params_from_numpy(cfg, tree: Mapping, device=None) -> L.ParamTree:
-    """The reference's parameter tree (numpy leaves) as the port's, on
-    ``device`` (default ``cuda``; raises without it)."""
-    device = resolve_device(device)
+def _unstack_model(cfg, tree: Mapping) -> dict:
+    """A tree of the reference's model layout (parameters, or anything in
+    their tree) with its stacks flattened as the port's."""
     want = {"embed", "layers", "ln_f"}
     if not cfg.tie_embeddings:
         want.add("unembed")
@@ -68,5 +72,45 @@ def params_from_numpy(cfg, tree: Mapping, device=None) -> L.ParamTree:
     if cfg.enc_layers:
         out["encoder"] = _unstack(tree["encoder"], cfg.enc_pattern,
                                   cfg.enc_layers)
-    return L.ParamTree(_map(out, lambda a: torch.tensor(
-        np.asarray(a, dtype=np.float32), device=device)))
+    return out
+
+
+def _tensor(a, device):
+    return torch.tensor(np.asarray(a, dtype=np.float32), device=device)
+
+
+def params_from_numpy(cfg, tree: Mapping, device=None) -> L.ParamTree:
+    """The reference's parameter tree (numpy leaves) as the port's, on
+    ``device`` (default ``cuda``; raises without it)."""
+    device = resolve_device(device)
+    return L.ParamTree(_map(_unstack_model(cfg, tree),
+                            lambda a: _tensor(a, device)))
+
+
+def state_from_numpy(cfg, state: Mapping, device=None) -> dict:
+    """A reference Trainer state with numpy leaves (``jax.tree.map(
+    np.asarray, state)``) as the port's ``{"params", "opt", "step"}``, on
+    ``device`` (default ``cuda``; raises without it).  The optimizer state
+    is keyed by parameter path, as ``repro_torch.optim`` keeps it."""
+    device = resolve_device(device)
+    params = params_from_numpy(cfg, state["params"], device)
+    paths = list(L.named_leaves(params))
+
+    def by_path(tree):
+        flat = L.named_leaves(_unstack_model(cfg, tree))
+        return {k: _tensor(a, device) for k, a in flat.items()}
+
+    opt = state["opt"]
+    if set(opt) == {"m", "v"}:                          # AdamW
+        out = {"m": by_path(opt["m"]), "v": by_path(opt["v"])}
+    elif set(opt) == {"v"}:                             # Adafactor
+        flat = by_path(opt["v"])
+        out = {"v": {p: {n: flat[f"{p}/{n}"] for n in ("vr", "vc", "v")
+                         if f"{p}/{n}" in flat} for p in paths}}
+    else:
+        raise ValueError(f"optimizer state with {sorted(opt)}")
+    for moments in out.values():
+        if set(moments) != set(paths):
+            raise ValueError("optimizer state does not match the parameters")
+    return {"params": params, "opt": out,
+            "step": torch.tensor(int(state["step"]), dtype=torch.int32)}

@@ -24,7 +24,8 @@ float32`` does: the operands are upcast to float32 (a bf16 x bf16 product
 is exact in float32) and multiplied with TF32 off, which
 :func:`repro_torch.models.model_zoo.build_model` sets.
 ``F.scaled_dot_product_attention`` is not used: the tests hold the
-reference's masking and rounding.
+reference's masking and rounding.  :func:`chunked_cross_entropy`'s
+vocabulary products are float32 products of upcast operands likewise.
 """
 from __future__ import annotations
 
@@ -35,17 +36,19 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 
 class ParamTree(nn.Module):
     """A parameter tree (nested dicts and lists of tensors) as modules.
 
     A dict becomes a :class:`ParamTree`, a list an ``nn.ModuleList``, a
-    tensor an ``nn.Parameter`` (without gradient: the port serves), all
-    under the reference's names, so ``state_dict`` keys are the
-    reference's paths (``layers.3.attn.wq``).  Reads are the reference's:
-    ``p["attn"]["wq"]``, ``"bq" in p["attn"]``.  A module given as a value
-    is shared, not copied.
+    tensor an ``nn.Parameter``, all under the reference's names, so
+    ``state_dict`` keys are the reference's paths (``layers.3.attn.wq``).
+    Reads are the reference's: ``p["attn"]["wq"]``, ``"bq" in
+    p["attn"]``.  A module given as a value is shared, not copied.  The
+    parameters hold no gradient (serving); ``tree.requires_grad_()`` makes
+    the tree trainable, as :class:`repro_torch.train.Trainer` does.
     """
 
     def __init__(self, tree: Mapping):
@@ -71,6 +74,26 @@ class ParamTree(nn.Module):
 
     def __contains__(self, name: str) -> bool:
         return name in self._parameters or name in self._modules
+
+
+def named_leaves(tree, prefix: str = "") -> dict:
+    """The leaves of a tree (mappings, lists, modules such as a
+    :class:`ParamTree`, and tensors, arrays or numbers) keyed by their
+    ``/``-joined paths, ``layers/3/attn/wq``, in the tree's own order.  A
+    mapping already keyed by paths gives itself."""
+    if isinstance(tree, nn.Module):
+        return {prefix + name.replace(".", "/"): p
+                for name, p in tree.named_parameters()}
+    if isinstance(tree, Mapping):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {prefix[:-1]: tree}
+    out = {}
+    for key, value in items:
+        out.update(named_leaves(value, f"{prefix}{key}/"))
+    return out
 
 
 def _init_dense(generator, shape, in_axis=0, dtype=torch.float32):
@@ -349,3 +372,50 @@ def embed(tokens, table, dtype):
 
 def unembed(x, table):
     return torch.einsum("bsd,vd->bsv", x, table.to(x.dtype))
+
+
+def _chunk_stats(h, tc, tgt, m, l, tlogit, first: int, V: int):
+    """One vocabulary chunk (rows ``first:first+len(tc)`` of the padded
+    table) folded into the online logsumexp ``(m, l)`` and the target
+    logit."""
+    Vc = tc.shape[0]
+    logits = torch.einsum("bsd,vd->bsv", h.float(), tc.to(h.dtype).float())
+    vidx = first + torch.arange(Vc, device=h.device)
+    logits = torch.where(vidx < V, logits, -1e30)       # vocabulary padding
+    m_new = torch.maximum(m, logits.amax(-1))
+    l = l * torch.exp(m - m_new) + torch.exp(
+        logits - m_new[..., None]).sum(-1)
+    local = tgt - first
+    in_chunk = (local >= 0) & (local < Vc)
+    got = torch.gather(logits, -1, local.clamp(0, Vc - 1)[..., None])[..., 0]
+    return m_new, l, torch.where(in_chunk, got, tlogit)
+
+
+def chunked_cross_entropy(h, table, targets, valid, n_chunks=8):
+    """Token cross-entropy WITHOUT materialising (B, S, V) logits.
+
+    Walks the vocabulary in ``n_chunks`` chunks with an online logsumexp
+    and a target-logit gather; each chunk is recomputed in the backward
+    pass (``torch.utils.checkpoint``, as the reference's
+    ``jax.checkpoint``), so live memory is O(B*S*V/n_chunks).  The
+    products are float32 over activation-dtype operands (the reference's
+    ``preferred_element_type=float32``).
+
+    Returns (sum_nll, n_valid).
+    """
+    B, S, _ = h.shape
+    V = table.shape[0]
+    Vc = -(-V // n_chunks)
+    pad = n_chunks * Vc - V
+    tbl = F.pad(table, (0, 0, 0, pad)) if pad else table
+    tgt = torch.where(valid, targets, 0)
+    m = torch.full((B, S), -1e30, dtype=torch.float32, device=h.device)
+    l = torch.zeros((B, S), dtype=torch.float32, device=h.device)
+    tlogit = torch.zeros((B, S), dtype=torch.float32, device=h.device)
+    for c in range(n_chunks):
+        m, l, tlogit = checkpoint(
+            _chunk_stats, h, tbl[c * Vc:(c + 1) * Vc], tgt, m, l, tlogit,
+            c * Vc, V, use_reentrant=False)
+    nll = m + torch.log(torch.clamp_min(l, 1e-30)) - tlogit
+    nll = torch.where(valid, nll, 0.0)
+    return nll.sum(), valid.sum()

@@ -1,14 +1,17 @@
-"""Model wrapper, PyTorch port of ``repro.models.model_zoo``: init, prefill
-and decode over any :class:`~repro_torch.configs.base.ArchConfig` (the
-dense, VLM, encoder-decoder, MoE, SSM and hybrid families).
+"""Model wrapper, PyTorch port of ``repro.models.model_zoo``: init, loss,
+prefill and decode over any :class:`~repro_torch.configs.base.ArchConfig`
+(the dense, VLM, encoder-decoder, MoE, SSM and hybrid families).
 
 A ``Model`` bundles the stack with the embeddings, the modality-frontend
 stub (precomputed frontend embeddings and a projection, as in the
-reference), the LM head and the serving entry points.  As in the
+reference), the LM head and the train and serve entry points.  As in the
 reference it holds no weights: :meth:`Model.init` returns the parameter
 tree, a :class:`~repro_torch.models.layers.ParamTree` on the model's
-device, and every entry point takes it.  Training (``loss``, ``_hidden``
-and the chunked cross-entropy) is a later slice of the port.
+device, and every entry point takes it.  :meth:`Model.loss` is the
+reference's: the mean next-token cross-entropy, through
+:func:`~repro_torch.models.layers.chunked_cross_entropy` for a vocabulary
+of at least ``CHUNKED_XENT_MIN_VOCAB``; like the reference it adds no
+MoE auxiliary loss.
 """
 from __future__ import annotations
 
@@ -88,14 +91,62 @@ class Model:
 
     def _trunk(self, params, x, positions, mode, caches=None,
                enc_out=None, enc_positions=None):
+        h, new_caches = self._hidden(params, x, positions, enc_out,
+                                     enc_positions, mode=mode, caches=caches)
+        cfg = self.cfg
+        table = params["embed"] if cfg.tie_embeddings else params["unembed"]
+        return L.unembed(h, table), new_caches
+
+    # ---------------- train ----------------
+    CHUNKED_XENT_MIN_VOCAB = 65536
+
+    def loss(self, params, batch):
+        """The mean next-token cross-entropy of ``batch`` (``tokens`` and
+        ``labels`` (B,S), label -100 for no target; for a frontend config
+        ``frontend_embeds``), a float32 scalar."""
+        cfg = self.cfg
+        x, fe = self._embed_inputs(params, batch)
+        enc_out = enc_pos = None
+        if cfg.enc_layers:
+            enc_in = fe if fe is not None else x  # audio enc-dec: frontend
+            enc_out, enc_pos = self._encode(params, enc_in)
+        B, S = x.shape[0], x.shape[1]
+        positions = L._positions(B, S, self.device)
+        labels = self._tensor(batch["labels"], torch.long)
+        if cfg.frontend and not cfg.enc_layers and "frontend_embeds" in batch:
+            # VLM: frontend positions carry no next-token target
+            n_front = batch["frontend_embeds"].shape[1]
+            pad = torch.full((B, n_front), -100, dtype=labels.dtype,
+                             device=self.device)
+            labels = torch.cat([pad, labels], dim=1)
+        targets = labels[:, 1:]
+        valid = targets >= 0
+
+        table = params["embed"] if cfg.tie_embeddings else params["unembed"]
+        if cfg.vocab >= self.CHUNKED_XENT_MIN_VOCAB:
+            # big vocabulary: the unembedding fused into a chunked online
+            # softmax, so the (B,S,V) logits are never held
+            h, _ = self._hidden(params, x, positions, enc_out, enc_pos)
+            nll_sum, n = L.chunked_cross_entropy(h[:, :-1], table, targets,
+                                                 valid)
+            return nll_sum / torch.clamp_min(n, 1)
+        logits, _ = self._trunk(params, x, positions, "train",
+                                enc_out=enc_out, enc_positions=enc_pos)
+        logits = logits[:, :-1]
+        tgt = torch.where(valid, targets, 0)
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        nll = -torch.gather(logp, -1, tgt[..., None])[..., 0]
+        nll = torch.where(valid, nll, 0.0)
+        return nll.sum() / torch.clamp_min(valid.sum(), 1)
+
+    def _hidden(self, params, x, positions, enc_out=None, enc_pos=None,
+                mode="train", caches=None):
+        """Trunk up to the final norm (no unembedding)."""
         cfg = self.cfg
         h, new_caches = T.stack_apply(
             cfg, cfg.pattern, params["layers"], x, positions=positions,
-            mode=mode, caches=caches, enc_out=enc_out,
-            enc_positions=enc_positions)
-        h = L.rmsnorm(h, params["ln_f"])
-        table = params["embed"] if cfg.tie_embeddings else params["unembed"]
-        return L.unembed(h, table), new_caches
+            mode=mode, caches=caches, enc_out=enc_out, enc_positions=enc_pos)
+        return L.rmsnorm(h, params["ln_f"]), new_caches
 
     # ---------------- serve ----------------
     def prefill(self, params, batch):

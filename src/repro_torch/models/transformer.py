@@ -15,10 +15,14 @@ dispatch needs a mesh).
 A stack is a flat list of blocks: layer ``i`` has kind
 ``pattern[i % len(pattern)]`` (the reference's layer ``g*len(pattern)+j``
 of its scanned group ``g``, or of its unscanned tail).  The groups run in
-a Python loop.  The reference's sharding and training machinery
-(``set_mesh_rules``/``constrain``, remat policies, ``lax.scan`` over
-stacked groups, ``block_specs``) has no counterpart: the port serves on
-one device.
+a Python loop.  In training (mode ``"train"`` with gradients on) each
+whole group runs under the config's remat policy, as the reference's
+scanned body does, and the tail without: ``"full"`` saves nothing inside
+a group, ``"dots"`` saves the products without a batch dimension (the
+reference's ``checkpoint_dots_with_no_batch_dims``), ``"none"`` saves
+everything.  The reference's sharding machinery (``set_mesh_rules``/
+``constrain``, ``lax.scan`` over stacked groups, ``block_specs``) has no
+counterpart: the port runs on one device.
 
 Modes are the reference's: ``"train"`` (a forward without a cache, which
 the encoder runs), ``"prefill"`` and ``"decode"``.  Decode writes each
@@ -28,7 +32,14 @@ returns a new state dict.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.models import layers as L
 from repro_torch.models import mixers as M
@@ -225,16 +236,44 @@ def _stack_init(generator, cfg, pattern, n_layers) -> list[dict]:
             for i in range(n_layers)]
 
 
+def _save_weight_products(ctx, op, *args, **kwargs):
+    """Remat ``"dots"``: keep a product without a batch dimension (a 2-D
+    ``mm``, or a ``bmm`` over a batch of one, which is how ``einsum``
+    runs a weight product); recompute the rest."""
+    if op is torch.ops.aten.mm.default or (
+            op is torch.ops.aten.bmm.default and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
 def stack_apply(cfg, pattern, blocks, x, *, positions, mode, caches=None,
                 enc_out=None, enc_positions=None):
     """Run the full layer stack.  ``caches``: one per block (or None).
     Returns (x, new_caches)."""
-    new_caches = []
-    for i, p in enumerate(blocks):
-        x, nc = block_apply(
-            cfg, pattern[i % len(pattern)], p, x, positions=positions,
+    glen = len(pattern)
+
+    def run(i, x):
+        return block_apply(
+            cfg, pattern[i % glen], blocks[i], x, positions=positions,
             mode=mode, cache=None if caches is None else caches[i],
             enc_out=enc_out, enc_positions=enc_positions)
+
+    new_caches, start = [], 0
+    if (cfg.remat in ("full", "dots") and mode == "train"
+            and torch.is_grad_enabled()):
+        def group(x, first):
+            for i in range(first, first + glen):
+                x, _ = run(i, x)
+            return x
+
+        kw = {} if cfg.remat == "full" else dict(context_fn=functools.partial(
+            create_selective_checkpoint_contexts, _save_weight_products))
+        start = len(blocks) // glen * glen
+        for first in range(0, start, glen):
+            x = checkpoint(group, x, first, use_reentrant=False, **kw)
+        new_caches = [None] * start     # training keeps no cache
+    for i in range(start, len(blocks)):
+        x, nc = run(i, x)
         new_caches.append(nc)
     return x, new_caches
 

@@ -54,6 +54,10 @@ def test_port_imports_neither_jax_nor_repro():
         "repro_torch.runtime.bucketing", "repro_torch.runtime.cache",
         "repro_torch.serve", "repro_torch.serve.engine",
         "repro_torch.core.distribute",
+        "repro_torch.train", "repro_torch.train.trainer",
+        "repro_torch.optim", "repro_torch.optim.optimizer",
+        "repro_torch.data", "repro_torch.data.pipeline",
+        "repro_torch.checkpoint", "repro_torch.checkpoint.checkpoint",
     } <= set(report["modules"])
 
 

@@ -43,13 +43,6 @@ from repro_torch.configs import base  # noqa: E402
 from repro_torch.models.model_zoo import build_model  # noqa: E402
 
 
-def _device_us(evt) -> float:
-    for name in ("self_device_time_total", "self_cuda_time_total"):
-        if hasattr(evt, name):
-            return float(getattr(evt, name))
-    return 0.0
-
-
 def _wall_ms(fn, reps: int) -> float:
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
@@ -69,9 +62,9 @@ def _profiled(fn, wall_ms: float) -> dict:
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.time_range.elapsed_us() for e in kernels)
-    ops = sorted(((e.key, _device_us(e), e.count)
+    ops = sorted(((e.key, cs.device_us(e), e.count)
                   for e in prof.key_averages()
-                  if e.key.startswith("aten::") and _device_us(e) > 0),
+                  if e.key.startswith("aten::") and cs.device_us(e) > 0),
                  key=lambda t: -t[1])
     total = sum(us for _, us, _ in ops) or 1.0
     return dict(
