@@ -6,7 +6,7 @@ Run from the root of a checkout, on a machine with one CUDA card::
 
 It builds the CUDA tile kernels from ``src/repro_torch/kernels/csrc`` into
 ``build/repro_torch_kernels/`` (one ``nvcc`` per kernel, all at once), then
-runs sixteen phases, each printing JSON lines:
+runs seventeen phases, each printing JSON lines:
 
   1. device    the card's name and power limit (``nvidia-smi``), versions;
   2. build     kernels built and seconds;
@@ -159,6 +159,27 @@ runs sixteen phases, each printing JSON lines:
                restore s, and a profiled step's launches and busy share.
                Training launches no stencil kernel, and the phase checks
                that K1/K2's counts do not move.
+ 17. lm_launch the sharded layer (``repro_torch.launch``, ``roofline``),
+               one line per part: (1) ``python -m repro_torch.launch.train
+               --arch granite_3_2b --steps 4 --batch 8 --seq 512`` at full
+               width and depth, its ``done:`` losses and step ms; (2) the
+               sharded ``Trainer`` on a 1x1 NCCL mesh (a world of one over
+               a localhost store) training granite-3-2b at full width and
+               depth for 3 float32 steps, within ``LM_TRAIN_TOL``'s
+               float32 bounds of the unsharded ``Trainer``: the first
+               step's gradients, the losses, the parameters after the
+               steps (bitwise equality printed); (3) qwen2-moe-a2.7b's prefill through
+               ``moe_apply_ep`` on that mesh, full width, one pattern
+               group deep, float32 logits within ``LM_CPU_TOL`` of the
+               dense dispatch; (4) the dry-run cells ``LM_LAUNCH_CELLS`` on
+               torch's ``fake`` backend (256 and 512 ranks) in a child
+               process with no card in view, started first so it runs
+               while the card trains: per-rank peak memory against the
+               card's, and the compute, memory and collective terms at the
+               H100's numbers; (5) ``analyze_step`` of (1)'s step: the
+               counted FLOPs beside the analytic bound and the compute
+               term's share of the measured step.  Any failure fails the
+               run; the sharded path launches no stencil kernel.
 
 Then one JSON line lists every kernel with its launches, error and times,
 and the last line is ``{"ok": true, "device": {...}}``.  Any failure
@@ -169,6 +190,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import shutil
 import subprocess
 import sys
@@ -286,6 +308,24 @@ LM_TRAIN_TOL = {
 # 16 B a parameter live beside this: the remat's recomputed group, the
 # loss's logits or chunks, the optimizer's temporaries of the largest leaf
 LM_TRAIN_HEADROOM_BYTES = 20e9
+# phase lm_launch: the sharded layer.  (1) the train CLI at full width and
+# depth; (2) the sharded Trainer on a 1x1 NCCL mesh against the unsharded
+# one in float32, within lm_train's gate (a) float32 bounds (loss_rel; the
+# first step's gradients' grad_max_rel, which alone sees a wrong gradient
+# scale, AdamW's update being blind to one; and grad_max_rel read as the
+# parameters' largest difference after the steps
+# over the tree's largest |parameter|); (3) qwen2-moe-a2.7b's prefill
+# through the expert-parallel dispatch on that mesh against the dense one
+# (LM_CPU_TOL's float32 prefill bound), one pattern group deep; (4) the
+# dry-run cells on the fake backend in a child process; (5) the counted
+# FLOPs of (1)'s step.
+LM_LAUNCH_CLI = ("--arch", "granite_3_2b", "--steps", "4", "--batch", "8",
+                 "--seq", "512")
+LM_LAUNCH_MESH_TRAFFIC = dict(steps=3, batch=8, seq=512, lr=3e-4, warmup=2)
+LM_LAUNCH_EP_BATCH = (8, 256)
+LM_LAUNCH_CELLS = (("mamba2_130m", "decode_32k", False),
+                   ("internlm2_1_8b", "decode_32k", True),
+                   ("granite_3_2b", "train_4k", False))
 
 
 def emit(**fields) -> None:
@@ -728,6 +768,26 @@ def loss_and_grads(model, params, batch):
         for (k, p), g in zip(named.items(), grads)}
 
 
+def first_step_grads(trainer, sink: dict):
+    """``trainer``, its optimizer wrapped so that the first update's
+    gradients (whole, float32, on the host) land in ``sink``."""
+    import dataclasses
+
+    update = trainer.optimizer.update
+
+    def first(grads, *a, **kw):
+        if not sink:
+            for k, g in grads.items():
+                if g is not None:
+                    if hasattr(g, "full_tensor"):
+                        g = g.full_tensor()
+                    sink[k] = g.detach().float().cpu()
+        return update(grads, *a, **kw)
+
+    trainer.optimizer = dataclasses.replace(trainer.optimizer, update=first)
+    return trainer
+
+
 def grad_errs(got, ref) -> dict:
     """Two :func:`loss_and_grads` results: ``loss_rel`` (|loss - ref| /
     |ref|), ``grad_max_rel`` (the largest |grad - ref| of any leaf over
@@ -1032,6 +1092,320 @@ def lm_train_phase(dev, hbm_bw: float, build_dir: Path, kernel_launches):
         got = lm_train(dev, arch_configs.get(arch), hbm_bw, build_dir,
                        kernel_launches, crash_resume=i == 0)
         yield dict(got, phase_s=time.perf_counter() - t0)
+
+
+def lm_launch_child(out_json: str, hbm_bytes: str) -> int:
+    """Phase ``lm_launch``'s CPU half, in a fresh process with no card in
+    view: the dry-run cells (``LM_LAUNCH_CELLS``) on torch's ``fake``
+    process group against ``hbm_bytes`` of memory a rank, then
+    ``analyze_step`` of the CLI's granite-3-2b train step (fake tensors:
+    shapes only) and the step's analytic FLOP bound."""
+    root = Path(__file__).resolve().parent
+    sys.path.insert(0, str(root / "src"))
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.configs import base as arch_configs
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.launch import dryrun
+    from repro_torch.models.layers import named_leaves
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.optim import make_optimizer
+    from repro_torch.roofline import analyze_step
+
+    out = {"cells": []}
+    for arch, shape, multi_pod in LM_LAUNCH_CELLS:
+        t0 = time.perf_counter()
+        res = dryrun.lower_cell(arch, shape, multi_pod=multi_pod,
+                                verbose=False, hbm_limit=float(hbm_bytes),
+                                dump_dir=str(root / "build" / "op_dumps"))
+        out["cells"].append(dict(
+            arch=arch, shape=shape, mesh=res.mesh, status=res.status,
+            reason=res.reason, wall_s=time.perf_counter() - t0,
+            report=res.report))
+
+    # (5): the CLI's step (batch 8 x 512, AdamW, remat "full"), counted
+    args = dict(zip(LM_LAUNCH_CLI[::2], LM_LAUNCH_CLI[1::2]))
+    cfg = arch_configs.get(args["--arch"])
+    B, S = int(args["--batch"]), int(args["--seq"])
+    with FakeTensorMode():
+        model = build_model(cfg, device="cpu")
+        params = model.init(torch.Generator()).requires_grad_()
+        opt = make_optimizer(cfg.optimizer)
+        state = opt.init(params)
+        batch = SyntheticLMData(vocab=cfg.vocab, batch=B, seq=S,
+                                device="cpu").batch_at(0)
+        named = named_leaves(params)
+
+        def step():
+            loss = model.loss(params, batch)
+            grads = torch.autograd.grad(loss, list(named.values()))
+            opt.update(dict(zip(named, grads)), state, named, 0)
+
+        counts = analyze_step(step)
+        counts.pop("out")
+        bound_ops = 8 * product_params(cfg, params) * B * S \
+            + 4 * attention_ops(cfg, B, S)
+    out["step"] = dict(arch=cfg.name, tokens=B * S, counts=counts,
+                       analytic_flop_bound_ms=bound_ops
+                       / H100_BF16_FLOPS * 1e3,
+                       model_flops=6 * cfg.params_active_estimate * B * S)
+    Path(out_json).write_text(json.dumps(out))
+    return 0
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def lm_launch_phase(dev, root: Path, kernel_launches):
+    """Phase ``lm_launch`` (see the module docstring): yields one result
+    per part; the dry-run child runs on the host while the card trains."""
+    import dataclasses
+    import gc
+    import os
+    import statistics
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import base as arch_configs
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.launch import sharding
+    from repro_torch.models import mixers
+    from repro_torch.models import transformer as T
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.roofline import roofline_from_step
+    from repro_torch.train import TrainConfig, Trainer
+
+    launches_before = kernel_launches()
+    card_bytes = torch.cuda.get_device_properties(dev).total_memory
+    # the CLI is another process on this card: hand it the cached blocks
+    gc.collect()
+    torch.cuda.empty_cache()
+    held_bytes = torch.cuda.memory_reserved(dev)
+    child_json = root / "build" / "lm_launch_child.json"
+    child_json.unlink(missing_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(root / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    t_child = time.perf_counter()
+    child = subprocess.Popen(
+        [sys.executable, str(root / "chip_smoke.py"), "--lm-launch-child",
+         str(child_json), str(card_bytes)], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        # (1) the train CLI, at full width and depth
+        t0 = time.perf_counter()
+        cli = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train",
+             *LM_LAUNCH_CLI], capture_output=True, text=True, timeout=600,
+            env=dict(os.environ, PYTHONPATH=str(root / "src")))
+        check(cli.returncode == 0, f"lm_launch (1): the CLI failed: "
+              f"{cli.stderr[-3000:]}")
+        steps = [(int(m[1]), float(m[2]), float(m[3])) for m in re.finditer(
+            r"\[trainer\] step (\d+) loss (\S+) \((\d+) ms\)", cli.stdout)]
+        done = [ln for ln in cli.stdout.splitlines()
+                if ln.startswith("done:")]
+        first, last = map(float, re.search(
+            r"loss (\S+) -> (\S+)", done[-1]).groups())
+        check(len(steps) == 4 and math.isfinite(last) and last < first,
+              f"lm_launch (1): {cli.stdout[-2000:]}")
+        step_ms = statistics.median(ms for _, _, ms in steps[1:])
+        yield dict(part="train_cli", command="python -m "
+                   "repro_torch.launch.train " + " ".join(LM_LAUNCH_CLI),
+                   parent_reserved_bytes=held_bytes,
+                   done=done[-1], losses=[loss for _, loss, _ in steps],
+                   step_ms=[ms for _, _, ms in steps],
+                   median_step_ms_after_first=step_ms,
+                   wall_s=time.perf_counter() - t0)
+
+        # (2) the sharded Trainer on a 1x1 NCCL mesh, float32
+        t0 = time.perf_counter()
+        torch.cuda.set_device(dev.index or 0)
+        dist.init_process_group("nccl", init_method="tcp://localhost:"
+                                f"{_free_port()}", world_size=1, rank=0)
+        try:
+            mesh = meshlib.make_host_mesh(1, 1)
+            cfg = dataclasses.replace(arch_configs.get(LM_ARCH),
+                                      act_dtype="float32")
+            traffic = dict(LM_LAUNCH_MESH_TRAFFIC, seed=LM_SEED,
+                           log_every=10 ** 9)
+            plan = sharding.DEFAULT_PLAN
+            T.set_mesh_rules(mesh, {**plan.act_rule_map(mesh),
+                                    "batch": meshlib.batch_axes(mesh)})
+            sharded_grads: dict = {}
+            try:
+                st, sharded_losses = first_step_grads(Trainer(
+                    build_model(cfg, device=dev), TrainConfig(**traffic),
+                    mesh=mesh, batch_spec=("data",)), sharded_grads).run()
+            finally:
+                T.clear_mesh_rules()
+            sharded = {k: p.detach().full_tensor().cpu()
+                       for k, p in st["params"].named_parameters()}
+            placements = sorted({str(tuple(p.placements)) for p in
+                                 st["params"].parameters()})
+            del st
+            gc.collect()
+            torch.cuda.empty_cache()
+            ref_grads: dict = {}
+            st, losses = first_step_grads(Trainer(
+                build_model(cfg, device=dev), TrainConfig(**traffic)),
+                ref_grads).run()
+            ref = {k: p.detach().cpu()
+                   for k, p in st["params"].named_parameters()}
+            del st
+            gc.collect()
+            torch.cuda.empty_cache()
+            tol = LM_TRAIN_TOL["float32"]
+            # the first step's gradients, gate (a)'s way: the check that
+            # sees a wrong gradient scale, which AdamW's m/sqrt(v) hides
+            # from the losses and parameters
+            check(sorted(sharded_grads) == sorted(ref_grads),
+                  "lm_launch (2): the two trainers' gradient trees differ")
+            grad_rel = grad_errs((sharded_losses[0], sharded_grads),
+                                 (losses[0], ref_grads))
+            del sharded_grads, ref_grads
+            loss_rel = max(abs(a - b) / abs(b)
+                           for a, b in zip(sharded_losses, losses))
+            param_max_rel = max(float((sharded[k] - r).abs().max())
+                                for k, r in ref.items()) \
+                / max(float(r.abs().max()) for r in ref.values())
+            check(len(losses) == traffic["steps"]
+                  and loss_rel <= tol["loss_rel"]
+                  and grad_rel["grad_max_rel"] <= tol["grad_max_rel"]
+                  and param_max_rel <= tol["grad_max_rel"],
+                  f"lm_launch (2): sharded {sharded_losses} vs {losses}, "
+                  f"first-step gradients {grad_rel}, params "
+                  f"{param_max_rel}")
+            yield dict(part="sharded_trainer", mesh="1x1 (data, model), "
+                       "nccl", arch=cfg.name, layers=cfg.n_layers,
+                       act_dtype="float32", traffic=traffic,
+                       losses_sharded=sharded_losses, losses=losses,
+                       loss_rel=loss_rel,
+                       first_step_grad_max_rel=grad_rel["grad_max_rel"],
+                       first_step_grad_rms_rel=grad_rel["grad_rms_rel"],
+                       param_max_rel=param_max_rel,
+                       tol=dict(loss_rel=tol["loss_rel"],
+                                grad_max_rel=tol["grad_max_rel"],
+                                param_max_rel=tol["grad_max_rel"]),
+                       bitwise=sharded_losses == losses and all(
+                           torch.equal(sharded[k], r)
+                           for k, r in ref.items()),
+                       placements=placements,
+                       wall_s=time.perf_counter() - t0)
+            del sharded, ref
+
+            # (3) qwen2-moe-a2.7b's prefill through the EP dispatch
+            t0 = time.perf_counter()
+            cfg = arch_configs.get("qwen2_moe_a2_7b")
+            cfg = dataclasses.replace(cfg, n_layers=gate_layers(cfg),
+                                      act_dtype="float32")
+            model = build_model(cfg, device=dev)
+            params = model.init(torch.Generator(device=dev).manual_seed(
+                LM_SEED))
+            B, S_ = LM_LAUNCH_EP_BATCH
+            tokens = torch.randint(0, cfg.vocab, (B, S_), device=dev,
+                                   generator=torch.Generator(device=dev)
+                                   .manual_seed(LM_SEED))
+            with torch.no_grad():
+                dense = model.prefill(params, {"tokens": tokens})[0]
+                dense = dense.float().cpu()
+                sharding.shard_params(model, params, mesh)
+                ep, ep_calls = mixers.moe_apply_ep, []
+
+                def counted(*a, **kw):
+                    ep_calls.append(1)
+                    return ep(*a, **kw)
+
+                mixers.moe_apply_ep = counted
+                T.set_mesh_rules(mesh, {
+                    **plan.act_rule_map(mesh, seq_shard=False),
+                    "batch": meshlib.batch_axes(mesh)})
+                try:
+                    with implicit_replication():
+                        got = model.prefill(params, {"tokens": tokens})[0]
+                finally:
+                    T.clear_mesh_rules()
+                    mixers.moe_apply_ep = ep
+                got = got.full_tensor().float().cpu()
+            d = (got - dense).abs()
+            errs = dict(prefill_max_rel=float(d.max() / dense.abs().max()),
+                        prefill_rms_rel=float(d.norm() / dense.norm()))
+            bound = LM_CPU_TOL["float32"]["prefill_max_rel"]
+            check(len(ep_calls) == cfg.n_layers
+                  and bool(torch.isfinite(got).all())
+                  and errs["prefill_max_rel"] <= bound,
+                  f"lm_launch (3): EP calls {len(ep_calls)}, {errs}")
+            yield dict(part="ep_moe_prefill", arch=cfg.name,
+                       layers=cfg.n_layers, d_model=cfg.d_model,
+                       experts=cfg.n_experts_padded, top_k=cfg.top_k,
+                       tokens=[B, S_], act_dtype="float32",
+                       ep_calls=len(ep_calls),
+                       prefill_max_rel=errs["prefill_max_rel"],
+                       prefill_rms_rel=errs["prefill_rms_rel"],
+                       bound_prefill_max_rel=bound,
+                       bitwise=bool(torch.equal(got, dense)),
+                       wall_s=time.perf_counter() - t0)
+            del model, params
+            gc.collect()
+            torch.cuda.empty_cache()
+        finally:
+            dist.destroy_process_group()
+
+        # (4) and (5): the child's dry-run cells and counted step
+        t0 = time.perf_counter()
+        c_out, c_err = child.communicate(timeout=900)
+        check(child.returncode == 0,
+              f"lm_launch (4): the dry-run child failed: {c_err[-3000:]}")
+        got = json.loads(child_json.read_text())
+        for cell in got["cells"]:
+            rep = cell["report"] or {}
+            check(cell["status"] == "ok", f"lm_launch (4): {cell}")
+            mem = rep["memory_per_chip"]
+            yield dict(part="dryrun_cell", arch=cell["arch"],
+                       shape=cell["shape"], mesh=cell["mesh"],
+                       chips=rep["chips"], status=cell["status"],
+                       peak_bytes_per_rank=mem["peak"],
+                       card_bytes=card_bytes, fits=rep["fits"],
+                       compute_term_s=rep["compute_term"],
+                       memory_term_s=rep["memory_term"],
+                       collective_term_s=rep["collective_term"],
+                       bottleneck=rep["bottleneck"],
+                       roofline_fraction=rep["roofline_fraction"],
+                       useful_flops_ratio=rep["useful_flops_ratio"],
+                       collective_bytes_per_rank=rep[
+                           "collective_bytes_per_chip"],
+                       collective_counts=rep["collective_detail"]["counts"],
+                       wall_s=cell["wall_s"])
+        step = got["step"]
+        rep = roofline_from_step(
+            step["counts"], arch=step["arch"], shape="cli_8x512",
+            mesh_desc="1", chips=1, model_flops=step["model_flops"],
+            memory_per_chip={"peak": 0}, hbm_limit=card_bytes)
+        yield dict(part="analyze_step", arch=step["arch"],
+                   tokens=step["tokens"], counted_flops=rep.hlo_flops,
+                   counted_bytes=rep.hlo_bytes,
+                   compute_term_ms=rep.compute_term * 1e3,
+                   memory_term_ms=rep.memory_term * 1e3,
+                   analytic_flop_bound_ms=step["analytic_flop_bound_ms"],
+                   roofline_fraction=rep.roofline_fraction,
+                   useful_flops_ratio=rep.useful_flops_ratio,
+                   measured_step_ms=step_ms,
+                   compute_term_share_of_step=rep.compute_term * 1e3
+                   / step_ms,
+                   child_wall_s=time.perf_counter() - t_child,
+                   wait_s=time.perf_counter() - t0)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    check(kernel_launches() == launches_before,
+          "lm_launch: the sharded path launched a stencil kernel")
 
 
 def cold_start_child(store_dir: str, build_root: str, out_npy: str,
@@ -1930,6 +2304,10 @@ def main() -> int:
                               kernel_launches):
         emit(phase="lm_train", nvidia_smi=smi, **got)
 
+    # ---- 17. lm_launch: the sharded layer ---------------------------------
+    for got in lm_launch_phase(dev, root, kernel_launches):
+        emit(phase="lm_launch", nvidia_smi=smi, **got)
+
     kernels = [
         dict(name="stencil_cuda", route="cuda",
              source="src/repro_torch/kernels/csrc/stencil_tile.cuh",
@@ -1958,4 +2336,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--cold-start-child"]:
         sys.exit(cold_start_child(*sys.argv[2:6]))
+    if sys.argv[1:2] == ["--lm-launch-child"]:
+        sys.exit(lm_launch_child(*sys.argv[2:4]))
     sys.exit(main())

@@ -7,7 +7,11 @@ Layout: ``<dir>/step_<N>/``, one ``.npy`` per leaf of the tree (its
 Writes go to ``step_<N>.tmp``, which is renamed only after the manifest
 is fsynced, so a preempted writer never corrupts the latest checkpoint.
 Arrays are stored whole and on the host, so a checkpoint does not depend
-on the device that wrote it.
+on the device or the mesh that wrote it: a DTensor leaf is gathered whole
+(every rank of its mesh takes part in the gather, rank 0 alone keeps the
+copy and writes it) and restored into the layout of the tree it is
+restored into.  On a process group every rank calls the save and the
+wait, and returns from them only once rank 0's write is on disk.
 
 numpy has no bfloat16: a bf16 leaf is stored as its 16-bit pattern
 (``uint16``) with ``bfloat16`` in the manifest, and restored bit for bit,
@@ -43,8 +47,39 @@ def _to_host(leaf) -> tuple[np.ndarray, str]:
     return arr, str(arr.dtype)
 
 
-def _snapshot(tree) -> dict:
-    return {k: _to_host(v) for k, v in named_leaves(tree).items()}
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(t, DTensor)
+
+
+def _writes() -> bool:
+    """Rank 0 of a process group writes."""
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _barrier():
+    """Every rank of a process group waits until rank 0's write is on
+    disk, so a rank that reads the directory next sees it."""
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.barrier()
+
+
+def _snapshot(tree) -> dict | None:
+    """The writer's host copy of ``tree``; None on the other ranks, which
+    only take part in gathering each DTensor leaf."""
+    writes = _writes()
+    host = {}
+    for k, v in named_leaves(tree).items():
+        if _is_dtensor(v):
+            v = v.full_tensor()     # a collective: every rank takes part
+        if writes:
+            host[k] = _to_host(v)
+    return host if writes else None
 
 
 def _write(directory: str, step: int, host: dict) -> str:
@@ -74,7 +109,14 @@ def _write(directory: str, step: int, host: dict) -> str:
 def save_checkpoint(directory: str, step: int, tree) -> str:
     """Write ``tree`` (tensors on any device, arrays, numbers) as
     ``<directory>/step_<step>``; returns that path."""
-    return _write(directory, step, _snapshot(tree))
+    host = _snapshot(tree)
+    path = os.path.join(directory, f"step_{step:08d}")
+    try:
+        if host is not None:
+            _write(directory, step, host)
+    finally:
+        _barrier()
+    return path
 
 
 def _steps(directory: str) -> list[int]:
@@ -109,6 +151,11 @@ def restore_checkpoint(directory: str, step: int, like_tree):
             raise ValueError(
                 f"{key}: stored {entry['dtype']}{list(got.shape)}, "
                 f"expected {like.dtype}{list(like.shape)}")
+        if _is_dtensor(like):
+            from torch.distributed.tensor import distribute_tensor
+
+            got = distribute_tensor(got.to(like.device), like.device_mesh,
+                                    like.placements, src_data_rank=None)
         like.copy_(got)
     return like_tree
 
@@ -121,11 +168,17 @@ class AsyncCheckpointer:
         self.keep = keep
         self._thread: threading.Thread | None = None
         self._error: BaseException | None = None
+        self._pending = False        # a save() not yet waited for
 
     def wait(self):
+        """Until the pending write is on disk; on a process group, every
+        rank waits for rank 0's."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._pending:
+            self._pending = False
+            _barrier()
         if self._error is not None:
             err, self._error = self._error, None
             raise err
@@ -133,6 +186,9 @@ class AsyncCheckpointer:
     def save(self, step: int, tree):
         self.wait()
         host = _snapshot(tree)
+        self._pending = True
+        if host is None:
+            return
 
         def work():
             try:

@@ -4,9 +4,15 @@ Batches are a pure function of (seed, step), so resuming at step N
 reproduces the exact stream and needs no data state in a checkpoint.
 Tokens come from an LCG-mixed integer hash over (seed, step, position)
 with a square-law fold, so losses are learnable but non-trivial; they
-are bitwise the reference's.  The reference's sharding vocabulary
-(``mesh``, ``batch_spec``, ``make_batch_specs``) has no counterpart: the
-port runs on one device.
+are bitwise the reference's.
+
+The mesh half: given a ``DeviceMesh`` and a ``batch_spec`` (the mesh axes
+of the batch dim, e.g. ``("data",)``), each batch comes back as DTensors
+sharded over those axes.  Every rank computes the whole batch from (seed,
+step) and keeps its own shard, so no data moves between ranks and a
+different mesh regenerates the identical stream.  :func:`make_batch_specs`
+gives each model input's (shape, dtype, spec) at a shape, for the
+dry-run.
 """
 from __future__ import annotations
 
@@ -48,13 +54,16 @@ class SyntheticLMData:
     frontend_tokens: int = 0
     frontend_dim: int = 0
     device: torch.device | str | None = None
+    mesh: object = None
+    batch_spec: tuple = ()
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
 
     def batch_at(self, step: int) -> dict:
         """``tokens`` and ``labels`` (the tokens shifted left by one,
-        wrapping), int32 (B,S), and ``frontend_embeds`` where configured."""
+        wrapping), int32 (B,S), and ``frontend_embeds`` where configured;
+        on a mesh, DTensors sharded over ``batch_spec``."""
         toks = _hash_tokens(self.seed, step, self.batch, self.seq, self.vocab)
         host = {"tokens": toks, "labels": np.roll(toks, -1, axis=1)}
         if self.frontend_tokens:
@@ -62,10 +71,34 @@ class SyntheticLMData:
             host["frontend_embeds"] = rng.standard_normal(
                 (self.batch, self.frontend_tokens, self.frontend_dim)
             ).astype(np.float32) * 0.05
-        return {k: torch.from_numpy(v).to(self.device) for k, v in host.items()}
+        out = {k: torch.from_numpy(v).to(self.device)
+               for k, v in host.items()}
+        if self.mesh is not None:
+            from torch.distributed.tensor import distribute_tensor
+
+            from repro_torch.launch.sharding import to_placements
+
+            out = {k: distribute_tensor(
+                v, self.mesh, to_placements((self.batch_spec,), self.mesh),
+                src_data_rank=None) for k, v in out.items()}
+        return out
 
     def __iter__(self):
         step = 0
         while True:
             yield self.batch_at(step)
             step += 1
+
+
+def make_batch_specs(cfg, batch: int, seq: int, batch_axes=("pod", "data")):
+    """(shape, dtype, spec) of every model input at a shape; a spec has
+    one entry per dim (the batch dim over ``batch_axes``)."""
+    specs = {
+        "tokens": ((batch, seq), torch.int32, (batch_axes, None)),
+        "labels": ((batch, seq), torch.int32, (batch_axes, None)),
+    }
+    if cfg.frontend:
+        n = cfg.n_frontend_tokens or max(seq // 4, 8)
+        specs["frontend_embeds"] = ((batch, n, cfg.frontend_dim),
+                                    torch.float32, (batch_axes, None, None))
+    return specs

@@ -15,8 +15,10 @@ The init functions draw from an explicit ``torch.Generator`` and allocate
 on that generator's device.  Their shapes, layouts and scales are the
 reference's; their values are not, because JAX's PRNG is not torch's
 (:func:`repro_torch.models.convert.params_from_numpy` carries the
-reference's own values over).  The reference's logical-axis specs, its
-sharding vocabulary, have no counterpart: the port runs on one device.
+reference's own values over).  Beside each init function sits its tree of
+logical axes (``swiglu_specs``, ``attention_specs``, ``RMSNORM_SPEC``,
+``EMBEDDING_SPEC``): the reference's second return value, which
+``repro_torch.launch.sharding`` maps onto a device mesh.
 
 Attention's score and PV products accumulate in float32 from
 activation-dtype operands, as the reference's ``preferred_element_type=
@@ -37,6 +39,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
+
+from repro_torch.models import spmd
 
 
 class ParamTree(nn.Module):
@@ -114,6 +118,10 @@ def dense_init(generator, shape, logical, in_axis=0):
 # --------------------------------------------------------------------------
 
 
+RMSNORM_SPEC = ("embed",)
+EMBEDDING_SPEC = ("vocab", "embed")
+
+
 def rmsnorm_init(d, device):
     return torch.ones((d,), dtype=torch.float32, device=device)
 
@@ -173,6 +181,11 @@ def swiglu_init(generator, d, f):
     }
 
 
+def swiglu_specs():
+    return {"wi": ("embed", "mlp"), "wg": ("embed", "mlp"),
+            "wo": ("mlp", "embed")}
+
+
 def swiglu(x, p):
     dt = x.dtype
     h = x @ p["wi"].to(dt)
@@ -210,11 +223,25 @@ def attention_init(generator, d_model, n_heads, n_kv, d_head, qkv_bias=False):
     return params
 
 
+def attention_specs(qkv_bias=False):
+    specs = {
+        "wq": ("embed", "heads", "head_dim"),
+        "wk": ("embed", "kv", "head_dim"),
+        "wv": ("embed", "kv", "head_dim"),
+        "wo": ("heads", "head_dim", "embed"),
+    }
+    if qkv_bias:
+        specs["bq"] = ("heads", "head_dim")
+        specs["bk"] = ("kv", "head_dim")
+        specs["bv"] = ("kv", "head_dim")
+    return specs
+
+
 def _project_qkv(x, p, positions, theta, use_rope=True):
     dt = x.dtype
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(dt))
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(dt))
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(dt))
+    q = spmd.project(x, p["wq"].to(dt))
+    k = spmd.project(x, p["wk"].to(dt))
+    v = spmd.project(x, p["wv"].to(dt))
     if "bq" in p:
         q = q + p["bq"].to(dt)
         k = k + p["bk"].to(dt)
@@ -363,7 +390,7 @@ def attn_out(ctx, p):
 def embedding_init(generator, vocab, d):
     """The table, with fan-in the vocabulary (the reference's ``in_axis=0``),
     and its logical axes."""
-    return _init_dense(generator, (vocab, d)), ("vocab", "embed")
+    return _init_dense(generator, (vocab, d)), EMBEDDING_SPEC
 
 
 def embed(tokens, table, dtype):
@@ -379,7 +406,7 @@ def _chunk_stats(h, tc, tgt, m, l, tlogit, first: int, V: int):
     table) folded into the online logsumexp ``(m, l)`` and the target
     logit."""
     Vc = tc.shape[0]
-    logits = torch.einsum("bsd,vd->bsv", h.float(), tc.to(h.dtype).float())
+    logits = spmd.rows_by_table(h.float(), tc.to(h.dtype).float())
     vidx = first + torch.arange(Vc, device=h.device)
     logits = torch.where(vidx < V, logits, -1e30)       # vocabulary padding
     m_new = torch.maximum(m, logits.amax(-1))

@@ -4,17 +4,20 @@
 Each mixer keeps the reference's names, arguments and parameter layout:
 
   * ``*_init(generator, ...)`` returns the parameter tree (and, for
-    Mamba-2, its ``meta``), drawn from ``generator`` on its device; the
-    reference's logical specs have no counterpart (one device);
+    Mamba-2, its ``meta``), drawn from ``generator`` on its device; its
+    logical axes, the reference's second return value, come from
+    ``moe_specs``, ``mamba2_specs`` and ``rglru_specs``;
   * a full-sequence apply (prefill), and
   * a single-token decode step with an explicit recurrent state.
 
 Every op keeps the reference's dtype: products in the activation dtype
 from weights cast where they are used; routing, SSD and RG-LRU state
-arithmetic in float32.  The reference's expert-parallel dispatch
-(``moe_apply_ep``, a ``shard_map`` program over a mesh) has no counterpart:
-the port serves on one device, where the reference also takes
-:func:`moe_apply`.
+arithmetic in float32.  :func:`moe_apply` pins the dispatch buffers with
+``spmd.constrain`` (the reference's ``transformer.constrain``) (the identity without a
+mesh).  :func:`moe_apply_ep` is the reference's expert-parallel dispatch
+over a device mesh: a ``local_map`` program whose collectives are
+autograd-aware (see its docstring); ``transformer._mlp_apply`` takes it
+under the reference's conditions.
 
 Where the reference leans on an XLA primitive, the port writes it out:
 
@@ -34,7 +37,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models import layers
+from repro_torch.models import layers, spmd
 
 
 # ==========================================================================
@@ -62,6 +65,71 @@ def moe_init(generator, d_model, n_experts, d_ff_expert, top_k,
     return params
 
 
+def moe_specs(n_shared=0):
+    specs = {
+        "router": ("embed", "expert"),
+        "wi": ("expert", "embed", "mlp"),
+        "wg": ("expert", "embed", "mlp"),
+        "wo": ("expert", "mlp", "embed"),
+    }
+    if n_shared:
+        specs["shared"] = layers.swiglu_specs()
+    return specs
+
+
+def _route(xt, router, top_k: int, n_real: int):
+    """Top-k routing of the tokens ``xt`` (T, D), sorted (stable) by
+    expert: (probs, topi, e_sorted, tok_sorted, w_sorted, pos_sorted),
+    ``pos_sorted`` a row's place in its expert's queue."""
+    T = xt.shape[0]
+    E = router.shape[1]
+    dev = xt.device
+    logits = xt.float() @ router.float()
+    if n_real < E:  # mask padding experts out of the routing distribution
+        logits = torch.where(torch.arange(E, device=dev) < n_real, logits,
+                             -1e30)
+    probs = torch.softmax(logits, dim=-1)
+    topw, topi = torch.topk(probs, top_k, dim=-1)           # (T, k)
+    topw = topw / torch.clamp_min(topw.sum(-1, keepdim=True), 1e-9)
+
+    Tk = T * top_k
+    e_flat = topi.reshape(-1)                                # (T*k,)
+    w_flat = topw.reshape(-1)
+    tok_flat = torch.arange(Tk, device=dev) // top_k
+    order = torch.argsort(e_flat, stable=True)
+    e_sorted = e_flat[order]
+    starts = torch.searchsorted(e_sorted, torch.arange(E, device=dev))
+    pos_sorted = torch.arange(Tk, device=dev) - starts[e_sorted]
+    return (probs, topi, e_sorted, tok_flat[order], w_flat[order],
+            pos_sorted)
+
+
+def _capacity(Tk: int, n_real: int, capacity_factor: float,
+              dropless: bool) -> int:
+    if dropless:
+        return Tk  # worst case: every token routed to one expert
+    return max(int(math.ceil(Tk / n_real * capacity_factor)), 1)
+
+
+def _experts(buf, wi, wg, wo):
+    """One batched SwiGLU per expert over the (E, cap, D) buffer."""
+    dt = buf.dtype
+    h = torch.bmm(buf, wi.to(dt))
+    g = torch.bmm(buf, wg.to(dt))
+    return torch.bmm(F.silu(g) * h, wo.to(dt))
+
+
+def _combine(gathered, tok_sorted, T: int, top_k: int):
+    """Each token's k rows, in the order the sorted dispatch holds them
+    (ascending expert), added one at a time in the activation dtype."""
+    rows = gathered[torch.argsort(tok_sorted, stable=True)].view(
+        T, top_k, gathered.shape[-1])
+    y = rows[:, 0]
+    for j in range(1, top_k):
+        y = y + rows[:, j]
+    return y
+
+
 def moe_apply(x, p, *, top_k: int, capacity_factor: float = 1.25,
               return_aux: bool = False, dropless: bool = False,
               n_experts_real: int = 0):
@@ -76,30 +144,10 @@ def moe_apply(x, p, *, top_k: int, capacity_factor: float = 1.25,
     T = B * S
     E = p["router"].shape[1]
     n_real = n_experts_real or E
-    dev = x.device
-    xt = x.reshape(T, D)
-    logits = xt.float() @ p["router"].float()
-    if n_real < E:  # mask padding experts out of the routing distribution
-        logits = torch.where(torch.arange(E, device=dev) < n_real, logits,
-                             -1e30)
-    probs = torch.softmax(logits, dim=-1)
-    topw, topi = torch.topk(probs, top_k, dim=-1)           # (T, k)
-    topw = topw / torch.clamp_min(topw.sum(-1, keepdim=True), 1e-9)
-
-    Tk = T * top_k
-    e_flat = topi.reshape(-1)                                # (T*k,)
-    w_flat = topw.reshape(-1)
-    tok_flat = torch.arange(Tk, device=dev) // top_k
-    order = torch.argsort(e_flat, stable=True)
-    e_sorted = e_flat[order]
-    tok_sorted = tok_flat[order]
-    w_sorted = w_flat[order]
-    starts = torch.searchsorted(e_sorted, torch.arange(E, device=dev))
-    pos_sorted = torch.arange(Tk, device=dev) - starts[e_sorted]
-    if dropless:
-        cap = Tk  # worst case: every token routed to one expert
-    else:
-        cap = max(int(math.ceil(Tk / n_real * capacity_factor)), 1)
+    xt = spmd.constrain(x.reshape(T, D), ("batch", None))
+    probs, topi, e_sorted, tok_sorted, w_sorted, pos_sorted = _route(
+        xt, p["router"], top_k, n_real)
+    cap = _capacity(T * top_k, n_real, capacity_factor, dropless)
     keep = pos_sorted < cap
 
     # pack: a kept row goes to slot e*cap + pos of a flat buffer, a dropped
@@ -107,22 +155,18 @@ def moe_apply(x, p, *, top_k: int, capacity_factor: float = 1.25,
     # mode="drop" scatter), which the experts never read
     dt = x.dtype
     slot = torch.where(keep, e_sorted * cap + pos_sorted, E * cap)
-    flat = torch.zeros((E * cap + 1, D), dtype=dt, device=dev)
+    flat = torch.zeros((E * cap + 1, D), dtype=dt, device=x.device)
     flat[slot] = xt[tok_sorted]
-    buf = flat[:E * cap].view(E, cap, D)
-    h = torch.bmm(buf, p["wi"].to(dt))
-    g = torch.bmm(buf, p["wg"].to(dt))
-    h = F.silu(g) * h
-    out_buf = torch.bmm(h, p["wo"].to(dt)).view(E * cap, D)
+    # pin the expert-parallel layout of the (E, cap, D) buffers
+    buf = spmd.constrain(flat[:E * cap].view(E, cap, D),
+                       ("expert", None, None))
+    out_buf = spmd.constrain(_experts(buf, p["wi"], p["wg"], p["wo"]),
+                           ("expert", None, None)).reshape(E * cap, D)
 
     gathered = out_buf[torch.where(keep, slot, 0)]
     gathered = gathered * (w_sorted * keep)[:, None].to(dt)
-    # combine: each token's k rows, in the order the sorted dispatch holds
-    # them (ascending expert), added one at a time in the activation dtype
-    rows = gathered[torch.argsort(tok_sorted, stable=True)].view(T, top_k, D)
-    y = rows[:, 0]
-    for j in range(1, top_k):
-        y = y + rows[:, j]
+    y = spmd.constrain(_combine(gathered, tok_sorted, T, top_k),
+                     ("batch", None))
 
     if "shared" in p:
         y = y + layers.swiglu(xt, p["shared"])
@@ -134,6 +178,111 @@ def moe_apply(x, p, *, top_k: int, capacity_factor: float = 1.25,
         return y, {"load_balance": aux,
                    "dropped_frac": 1.0 - keep.float().mean()}
     return y
+
+
+def moe_apply_ep(x, p, *, top_k: int, mesh, batch_axes, ep_axis="model",
+                 capacity_factor: float = 1.25, dropless: bool = False,
+                 n_experts_real: int = 0):
+    """Expert-parallel MoE dispatch over ``mesh`` (a ``DeviceMesh``), the
+    reference's ``shard_map`` program as a ``local_map`` one.
+
+    Rank (d, m) holds token shard d (``x`` sharded over ``batch_axes``,
+    replicated over ``ep_axis``) and expert shard m (FSDP over ``data``).
+    It routes its local tokens, packs only the experts of shard m (the
+    capacity is per token shard, the drop order the reference's sorted
+    one), all-gathers its expert weights over ``data`` (ZeRO-3), computes,
+    combines a partial (T_local, D) in ascending-expert order, and one
+    psum over ``ep_axis`` adds the routed and shared-expert partials.
+
+    The reference's dispatch moves no token between ranks (tokens are
+    replicated over the EP axis, its combine is one psum), so neither
+    does this one: no all-to-all.  Its collectives are autograd-aware as
+    ``shard_map``'s transposes are: the weight all-gather's backward is a
+    reduce-scatter (``all_gather_tensor_autograd``), the psum's is the
+    identity, and the replicated inputs (tokens over ``ep_axis``, the
+    router over every axis) sum their gradients over the axes they are
+    replicated on.  Arguments that are not DTensors are distributed first
+    (every rank passes the same global values).  Requires the expert dim
+    padded to a multiple of the EP axis (``n_experts_padded``).
+    """
+    from torch.distributed import _functional_collectives as funcol
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    from torch.distributed.tensor.experimental import local_map
+
+    B, S, D = x.shape
+    E_pad = p["router"].shape[1]
+    n_real = n_experts_real or E_pad
+    names = mesh.mesh_dim_names
+    ep = mesh.size(names.index(ep_axis))
+    E_l = E_pad // ep
+    fsdp_axis = "data" if "data" in names else None
+    fsdp_group = mesh.get_group(fsdp_axis) if fsdp_axis else None
+    ep_group = mesh.get_group(ep_axis)
+    all_groups = [mesh.get_group(a) for a in names]
+    has_shared = "shared" in p
+    m = mesh.get_local_rank(ep_axis)
+
+    gather_autograd = getattr(funcol, "all_gather_single_autograd",
+                              None) or funcol.all_gather_tensor_autograd
+
+    def gather(w, dim):
+        if fsdp_group is None:
+            return w
+        return gather_autograd(w.contiguous(), dim, fsdp_group)
+
+    def local_fn(x_l, router, wi, wg, wo, *shared_ws):
+        Bl, Sl, _ = x_l.shape
+        T = Bl * Sl
+        dt = x_l.dtype
+        xt = spmd.sum_grad(x_l.reshape(T, D), [ep_group])
+        router = spmd.sum_grad(router, all_groups)
+        _, _, e_sorted, tok_sorted, w_sorted, pos_sorted = _route(
+            xt, router, top_k, n_real)
+        cap = _capacity(T * top_k, n_real, capacity_factor, dropless)
+        # pack ONLY this rank's expert shard; other rows go to the spare row
+        e_local = e_sorted - m * E_l
+        mine = (pos_sorted < cap) & (e_local >= 0) & (e_local < E_l)
+        slot = torch.where(mine, e_local * cap + pos_sorted, E_l * cap)
+        flat = torch.zeros((E_l * cap + 1, D), dtype=dt, device=x_l.device)
+        flat[slot] = xt[tok_sorted]
+        buf = flat[:E_l * cap].view(E_l, cap, D)
+        out_buf = _experts(buf, gather(wi, 1), gather(wg, 1),
+                           gather(wo, 2)).reshape(E_l * cap, D)
+        gathered = out_buf[torch.where(mine, slot, 0)]
+        gathered = gathered * (w_sorted * mine)[:, None].to(dt)
+        y = _combine(gathered, tok_sorted, T, top_k)
+        if has_shared:
+            swi, swg, swo = shared_ws
+            y = y + layers.swiglu(xt, {"wi": gather(swi, 0),
+                                       "wg": gather(swg, 0),
+                                       "wo": gather(swo, 1)})
+        return spmd.psum(y, ep_group).reshape(Bl, Sl, D)
+
+    def placements(dims=None):
+        """Per mesh axis: ``Shard(dims[axis])`` or ``Replicate()``."""
+        from torch.distributed.tensor import Replicate, Shard
+
+        dims = dims or {}
+        return tuple(Shard(dims[a]) if dims.get(a) is not None
+                     else Replicate() for a in names)
+
+    x_pl = placements({a: 0 for a in batch_axes})
+    in_pl = [x_pl, placements(),                            # x, router
+             placements({ep_axis: 0, fsdp_axis: 1}),        # wi
+             placements({ep_axis: 0, fsdp_axis: 1}),        # wg
+             placements({ep_axis: 0, fsdp_axis: 2})]        # wo
+    args = [x, p["router"], p["wi"], p["wg"], p["wo"]]
+    if has_shared:
+        in_pl += [placements({fsdp_axis: 0, ep_axis: 1}),
+                  placements({fsdp_axis: 0, ep_axis: 1}),
+                  placements({ep_axis: 0, fsdp_axis: 1})]
+        args += [p["shared"]["wi"], p["shared"]["wg"], p["shared"]["wo"]]
+    args = [a if isinstance(a, DTensor) else
+            distribute_tensor(a, mesh, pl, src_data_rank=None)
+            for a, pl in zip(args, in_pl)]
+    fn = local_map(local_fn, out_placements=list(x_pl), in_placements=in_pl,
+                   redistribute_inputs=True, device_mesh=mesh)
+    return fn(*args)
 
 
 # ==========================================================================
@@ -168,19 +317,26 @@ def mamba2_init(generator, d_model, *, d_state=128, headdim=64, expand=2,
     return params, meta
 
 
+def mamba2_specs():
+    return {
+        "in_proj": ("embed", "mlp"), "conv_w": (None, "mlp"),
+        "conv_b": ("mlp",), "A_log": ("heads",), "D": ("heads",),
+        "dt_bias": ("heads",), "norm": ("mlp",), "out_proj": ("mlp", "embed"),
+    }
+
+
 def _causal_conv(x, w, b, state=None):
     """Depthwise causal conv1d; x (B,S,C), w (K,C).  Returns (y, new_state).
     The K products are summed in order i = 0..K-1."""
     K = w.shape[0]
-    if state is None:
-        state = torch.zeros((x.shape[0], K - 1, x.shape[2]), dtype=x.dtype,
-                            device=x.device)
-    xx = torch.cat([state, x], dim=1)
+    # no state: K-1 zero rows in front (a pad keeps a DTensor's layout)
+    xx = F.pad(x, (0, 0, K - 1, 0)) if state is None \
+        else torch.cat([state, x], dim=1)
     S = x.shape[1]
     y = xx[:, 0:S] * w[0].to(x.dtype)
     for i in range(1, K):
         y = y + xx[:, i:i + S] * w[i].to(x.dtype)
-    new_state = xx[:, -(K - 1):].contiguous() if K > 1 else state
+    new_state = xx[:, xx.shape[1] - (K - 1):].contiguous()
     return y + b.to(x.dtype), new_state
 
 
@@ -204,14 +360,20 @@ def mamba2_apply(x, p, meta, *, chunk=64, state=None, return_state=False):
     di, nh, pd, ns, ng = (meta["d_inner"], meta["n_heads"], meta["headdim"],
                           meta["d_state"], meta["n_groups"])
     dt_act = x.dtype
-    zxbcdt = x @ p["in_proj"].to(dt_act)
+    # the chunk products batch over (B, chunks, heads): on a mesh the
+    # projection is gathered whole, so no merged batch dim is sharded
+    # behind another
+    zxbcdt = spmd.constrain(x @ p["in_proj"].to(dt_act),
+                            ("batch", None, None))
     z, xBC, dt = _split_zxbcdt(zxbcdt, meta)
     conv_state = None if state is None else state["conv"]
     xBC, new_conv = _causal_conv(xBC, p["conv_w"], p["conv_b"], conv_state)
     xBC = F.silu(xBC)
-    xs = xBC[..., :di].reshape(B, S, nh, pd)
-    Bm = xBC[..., di:di + ng * ns].reshape(B, S, ng, ns)
-    Cm = xBC[..., di + ng * ns:].reshape(B, S, ng, ns)
+    xs = spmd.even_split(xBC[..., :di], -1, nh).reshape(B, S, nh, pd)
+    Bm = spmd.even_split(xBC[..., di:di + ng * ns], -1, ng).reshape(
+        B, S, ng, ns)
+    Cm = spmd.even_split(xBC[..., di + ng * ns:], -1, ng).reshape(
+        B, S, ng, ns)
     # broadcast groups over heads
     Bm = Bm.repeat_interleave(nh // ng, dim=2)               # (B,S,nh,ns)
     Cm = Cm.repeat_interleave(nh // ng, dim=2)
@@ -231,7 +393,7 @@ def mamba2_apply(x, p, meta, *, chunk=64, state=None, return_state=False):
         dt = F.pad(dt, (0, 0, 0, pad))
 
     def rs(a, *shape):
-        return a.reshape(B, nc, chunk, *shape)
+        return spmd.even_split(a, 1, nc).reshape(B, nc, chunk, *shape)
 
     xs_c = rs(xs, nh, pd).float()
     B_c = rs(Bm, nh, ns).float()
@@ -269,7 +431,8 @@ def mamba2_apply(x, p, meta, *, chunk=64, state=None, return_state=False):
     y = (y_diag + y_off).permute(0, 1, 3, 2, 4).reshape(B, Sp, nh, pd)[:, :S]
     y = y + xs.reshape(B, Sp, nh, pd)[:, :S].float() \
         * p["D"][None, None, :, None]
-    y = y.reshape(B, S, di)
+    # whole on a mesh, as the projection: so is the gradient coming back
+    y = spmd.constrain(y.reshape(B, S, di), ("batch", None, None))
     y = layers.rmsnorm(y.to(dt_act), p["norm"]) * F.silu(z)
     out = y @ p["out_proj"].to(dt_act)
     if return_state:
@@ -287,11 +450,11 @@ def mamba2_step(x1, p, meta, state):
     z, xBC, dt = _split_zxbcdt(zxbcdt, meta)
     xBC, new_conv = _causal_conv(xBC, p["conv_w"], p["conv_b"], state["conv"])
     xBC = F.silu(xBC)
-    xs = xBC[..., :di].reshape(B, nh, pd).float()
-    Bm = xBC[..., di:di + ng * ns].reshape(B, ng, ns).repeat_interleave(
-        nh // ng, dim=1).float()
-    Cm = xBC[..., di + ng * ns:].reshape(B, ng, ns).repeat_interleave(
-        nh // ng, dim=1).float()
+    xs = spmd.even_split(xBC[..., :di], -1, nh).reshape(B, nh, pd).float()
+    Bm = spmd.even_split(xBC[..., di:di + ng * ns], -1, ng).reshape(
+        B, ng, ns).repeat_interleave(nh // ng, dim=1).float()
+    Cm = spmd.even_split(xBC[..., di + ng * ns:], -1, ng).reshape(
+        B, ng, ns).repeat_interleave(nh // ng, dim=1).float()
     dt = F.softplus(dt[:, 0].float() + p["dt_bias"])          # (B,nh)
     A = -torch.exp(p["A_log"])
     dec = torch.exp(dt * A)                                   # (B,nh)
@@ -329,6 +492,16 @@ def rglru_init(generator, d_model, *, lru_width=None, d_conv=4):
         "bx": torch.zeros((w,), **zeros),
         "Lambda": torch.log(torch.exp(-torch.log(lam) * 0.125) - 1.0),
         "out": layers._init_dense(generator, (w, d_model)),
+    }
+
+
+def rglru_specs():
+    return {
+        "in_x": ("embed", "mlp"), "in_gate": ("embed", "mlp"),
+        "conv_w": (None, "mlp"), "conv_b": ("mlp",),
+        "wa": ("mlp", "mlp2"), "wx": ("mlp", "mlp2"),
+        "ba": ("mlp",), "bx": ("mlp",), "Lambda": ("mlp",),
+        "out": ("mlp", "embed"),
     }
 
 
@@ -394,7 +567,8 @@ def rglru_apply(x, p, *, state=None, return_state=False, chunk=256):
         h_in = h_t[:, -1]
         hs.append(h_t.to(dt))
     h = torch.cat(hs, dim=1)[:, :S]
-    y = h * gate
+    # whole positions on a mesh: the projection merges (batch, positions)
+    y = spmd.constrain(h * gate, ("batch", None, None))
     out = y @ p["out"].to(dt)
     if return_state:
         return out, {"conv": new_conv, "h": h_in}

@@ -11,7 +11,10 @@ device, and every entry point takes it.  :meth:`Model.loss` is the
 reference's: the mean next-token cross-entropy, through
 :func:`~repro_torch.models.layers.chunked_cross_entropy` for a vocabulary
 of at least ``CHUNKED_XENT_MIN_VOCAB``; like the reference it adds no
-MoE auxiliary loss.
+MoE auxiliary loss.  :meth:`Model.param_specs` is the tree of logical
+axes the sharding plan maps onto a mesh (``repro_torch.launch``), and the
+entry points pin their activations with ``spmd.constrain`` at the
+reference's cut points (the identity without a mesh).
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ import torch
 
 from repro_torch.kernels.ops import _indexed, resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import spmd
 from repro_torch.models import transformer as T
 
 
@@ -64,19 +68,52 @@ class Model:
                 generator, (cfg.frontend_dim, cfg.d_model))
         return L.ParamTree(params)
 
+    # ---------------- logical sharding specs ----------------
+    def param_specs(self) -> dict:
+        """The logical axes of every leaf of :meth:`init`'s tree: the
+        reference's, with the stack a flat list of blocks (its scanned
+        specs without the leading ``"layers"`` axis)."""
+        cfg = self.cfg
+        specs: dict = {"embed": L.EMBEDDING_SPEC, "ln_f": L.RMSNORM_SPEC}
+        specs["layers"] = T._stack_specs(cfg, cfg.pattern, cfg.n_layers)
+        if not cfg.tie_embeddings:
+            specs["unembed"] = ("vocab", "embed")
+        if cfg.enc_layers:
+            specs["encoder"] = T._stack_specs(cfg, cfg.enc_pattern,
+                                              cfg.enc_layers)
+            specs["ln_enc"] = L.RMSNORM_SPEC
+        if cfg.frontend:
+            specs["frontend_proj"] = (None, "embed")
+        return specs
+
     def _tensor(self, a, dtype=None):
         return torch.as_tensor(a, dtype=dtype, device=self.device)
+
+    @staticmethod
+    def _embed(tokens, table, dtype):
+        """The token rows of ``table``; on a mesh, per rank from the whole
+        table (ZeRO-3's gather), its gradient summed over the batch axes."""
+        return spmd.per_rank(lambda t, w: L.embed(t, w, dtype),
+                             (tokens, table), (("batch", None), (None, None)),
+                             ("batch", None, None), sum_grad_over={1: "batch"})
+
+    def _positions(self, B, S):
+        """0..S-1 for each of B rows; on a mesh, laid out like the batch."""
+        return spmd.replicated(L._positions(B, S, self.device),
+                               ("batch", None))
 
     # ---------------- embedding assembly ----------------
     def _embed_inputs(self, params, batch):
         cfg = self.cfg
         dt = act_dtype(cfg.act_dtype)
-        tok = self._tensor(batch["tokens"], torch.long)
-        x = L.embed(tok, params["embed"], dt)
+        x = self._embed(self._tensor(batch["tokens"], torch.long),
+                        params["embed"], dt)
         if cfg.frontend and "frontend_embeds" in batch:
             fe = self._tensor(batch["frontend_embeds"]).to(dt)
             fe = torch.einsum("bnd,de->bne", fe,
                               params["frontend_proj"].to(dt))
+            # on a mesh, a layout the product's backward can merge
+            fe = spmd.constrain(fe, ("batch", None, None))
             if cfg.enc_layers:
                 return x, fe            # enc-dec: frontend feeds the encoder
             x = torch.cat([fe, x], dim=1)  # VLM early fusion
@@ -84,7 +121,7 @@ class Model:
 
     def _encode(self, params, enc_in):
         cfg = self.cfg
-        pos = L._positions(enc_in.shape[0], enc_in.shape[1], self.device)
+        pos = self._positions(enc_in.shape[0], enc_in.shape[1])
         h, _ = T.stack_apply(cfg, cfg.enc_pattern, params["encoder"], enc_in,
                              positions=pos, mode="train")
         return L.rmsnorm(h, params["ln_enc"]), pos
@@ -94,8 +131,16 @@ class Model:
         h, new_caches = self._hidden(params, x, positions, enc_out,
                                      enc_positions, mode=mode, caches=caches)
         cfg = self.cfg
-        table = params["embed"] if cfg.tie_embeddings else params["unembed"]
-        return L.unembed(h, table), new_caches
+        table = spmd.grad_as_param(
+            params["embed"] if cfg.tie_embeddings else params["unembed"])
+        logits = L.unembed(h, table)
+        if mode == "train":
+            # training loss reduces over vocab pointwise per token: keep
+            # logits sequence-sharded so no chip holds (S, V) whole
+            logits = spmd.constrain(logits, ("batch", "seq", None))
+        else:
+            logits = spmd.constrain(logits, ("batch", None, "vocab"))
+        return logits, new_caches
 
     # ---------------- train ----------------
     CHUNKED_XENT_MIN_VOCAB = 65536
@@ -111,7 +156,7 @@ class Model:
             enc_in = fe if fe is not None else x  # audio enc-dec: frontend
             enc_out, enc_pos = self._encode(params, enc_in)
         B, S = x.shape[0], x.shape[1]
-        positions = L._positions(B, S, self.device)
+        positions = self._positions(B, S)
         labels = self._tensor(batch["labels"], torch.long)
         if cfg.frontend and not cfg.enc_layers and "frontend_embeds" in batch:
             # VLM: frontend positions carry no next-token target
@@ -119,23 +164,32 @@ class Model:
             pad = torch.full((B, n_front), -100, dtype=labels.dtype,
                              device=self.device)
             labels = torch.cat([pad, labels], dim=1)
-        targets = labels[:, 1:]
+        # the last position has no next token: its target is masked, not
+        # sliced off (on a mesh DTensor would gather the position-sharded
+        # hidden states or logits whole to slice them)
+        targets = torch.cat([labels[:, 1:], torch.full(
+            (B, 1), -100, dtype=labels.dtype, device=self.device)], 1)
         valid = targets >= 0
 
-        table = params["embed"] if cfg.tie_embeddings else params["unembed"]
+        table = spmd.grad_as_param(
+            params["embed"] if cfg.tie_embeddings else params["unembed"])
         if cfg.vocab >= self.CHUNKED_XENT_MIN_VOCAB:
             # big vocabulary: the unembedding fused into a chunked online
             # softmax, so the (B,S,V) logits are never held
             h, _ = self._hidden(params, x, positions, enc_out, enc_pos)
-            nll_sum, n = L.chunked_cross_entropy(h[:, :-1], table, targets,
-                                                 valid)
+            h = spmd.constrain(h, ("batch", "seq", None))
+            nll_sum, n = L.chunked_cross_entropy(h, table, targets, valid)
             return nll_sum / torch.clamp_min(n, 1)
         logits, _ = self._trunk(params, x, positions, "train",
                                 enc_out=enc_out, enc_positions=enc_pos)
-        logits = logits[:, :-1]
         tgt = torch.where(valid, targets, 0)
         logp = torch.log_softmax(logits.float(), dim=-1)
-        nll = -torch.gather(logp, -1, tgt[..., None])[..., 0]
+        if spmd.mesh() is None:
+            nll = -torch.gather(logp, -1, tgt[..., None])[..., 0]
+        else:           # DTensor's gather backward makes global zeros
+            hit = torch.arange(logp.shape[-1], device=self.device) \
+                == tgt[..., None]
+            nll = -torch.where(hit, logp, 0.0).sum(-1)
         nll = torch.where(valid, nll, 0.0)
         return nll.sum() / torch.clamp_min(valid.sum(), 1)
 
@@ -143,6 +197,7 @@ class Model:
                 mode="train", caches=None):
         """Trunk up to the final norm (no unembedding)."""
         cfg = self.cfg
+        x = spmd.constrain(x, ("batch", None, None))
         h, new_caches = T.stack_apply(
             cfg, cfg.pattern, params["layers"], x, positions=positions,
             mode=mode, caches=caches, enc_out=enc_out, enc_positions=enc_pos)
@@ -159,7 +214,7 @@ class Model:
         if cfg.enc_layers:
             enc_in = fe if fe is not None else x
             enc_out, enc_pos = self._encode(params, enc_in)
-        positions = L._positions(x.shape[0], x.shape[1], self.device)
+        positions = self._positions(x.shape[0], x.shape[1])
         logits, caches = self._trunk(params, x, positions, "prefill",
                                      enc_out=enc_out, enc_positions=enc_pos)
         return logits[:, -1], caches
@@ -175,8 +230,8 @@ class Model:
         """tokens (B,1); pos (B,) current positions.  The caches are
         updated in place and returned."""
         cfg = self.cfg
-        x = L.embed(self._tensor(tokens, torch.long), params["embed"],
-                    act_dtype(cfg.act_dtype))
+        x = self._embed(self._tensor(tokens, torch.long), params["embed"],
+                        act_dtype(cfg.act_dtype))
         positions = self._tensor(pos, torch.int32)[:, None]
         logits, new_caches = self._trunk(params, x, positions, "decode",
                                          caches=caches, enc_out=enc_out,

@@ -9,8 +9,9 @@ reference:
 
 The mixers (MoE, RG-LRU, Mamba-2 SSD) are ``models/mixers.py``.  The
 MoE layers dispatch with the config's capacity in prefill and dropless in
-decode, as the reference does on one device (its expert-parallel
-dispatch needs a mesh).
+decode; under a mesh with a ``model`` axis that divides the stored
+experts, and a batch that divides over the data axes, they take the
+expert-parallel dispatch (``mixers.moe_apply_ep``), as the reference does.
 
 A stack is a flat list of blocks: layer ``i`` has kind
 ``pattern[i % len(pattern)]`` (the reference's layer ``g*len(pattern)+j``
@@ -20,9 +21,25 @@ whole group runs under the config's remat policy, as the reference's
 scanned body does, and the tail without: ``"full"`` saves nothing inside
 a group, ``"dots"`` saves the products without a batch dimension (the
 reference's ``checkpoint_dots_with_no_batch_dims``), ``"none"`` saves
-everything.  The reference's sharding machinery (``set_mesh_rules``/
-``constrain``, ``lax.scan`` over stacked groups, ``block_specs``) has no
-counterpart: the port runs on one device.
+everything.  ``block_specs``/``_stack_specs`` give the logical axes of
+each block's parameters: the reference's scanned specs without their
+leading ``"layers"`` axis, which every plan maps to no mesh axis.
+
+The mesh path: ``set_mesh_rules``, ``clear_mesh_rules`` and
+``constrain`` are the reference's names here, and live in
+``models/spmd.py`` with every other place the model meets DTensor; each
+is the identity without a mesh.  This module decides the layouts:
+
+  * attention runs per rank (``spmd.per_rank``, a ``local_map``):
+    queries split by heads where the KV heads divide over the heads' mesh
+    axes (the reference's layout), else by position in train and prefill
+    (the keys whole, their gradient summed over those axes), else not;
+    DTensor cannot split the grouped heads (kv, group) of an unevenly
+    sharded head dim, where GSPMD pads;
+  * a decode step writes its ring slot with a masked ``torch.where`` (out
+    of place; DTensor has no rule for the indexed store);
+  * a dispatch that is not expert-parallel (``moe_apply`` under a mesh)
+    runs replicated, per rank.
 
 Modes are the reference's: ``"train"`` (a forward without a cache, which
 the encoder runs), ``"prefill"`` and ``"decode"``.  Decode writes each
@@ -43,6 +60,13 @@ from torch.utils.checkpoint import (
 
 from repro_torch.models import layers as L
 from repro_torch.models import mixers as M
+from repro_torch.models import spmd
+from repro_torch.models.spmd import (  # noqa: F401  (set/clear re-exported)
+    clear_mesh_rules,
+    constrain,
+    per_rank,
+    set_mesh_rules,
+)
 
 ATTN_KINDS = ("attn", "attn_moe", "local", "enc", "xattn")
 KINDS = ATTN_KINDS + ("rec", "ssm")
@@ -97,16 +121,78 @@ def block_init(generator, cfg, kind: str) -> dict:
     return params
 
 
+def block_specs(cfg, kind: str) -> dict:
+    """The logical axes of one block's parameters, the tree of
+    :func:`block_init` (no tensor is made)."""
+    check_kind(kind)
+    specs = {}
+    if kind in ATTN_KINDS:
+        specs["ln_attn"] = L.RMSNORM_SPEC
+        specs["attn"] = L.attention_specs(cfg.qkv_bias)
+    if kind == "xattn":
+        specs["ln_cross"] = L.RMSNORM_SPEC
+        specs["cross"] = L.attention_specs(cfg.qkv_bias)
+    if kind == "rec":
+        specs["ln_rec"] = L.RMSNORM_SPEC
+        specs["rec"] = M.rglru_specs()
+    if kind == "ssm":
+        specs["ln_ssm"] = L.RMSNORM_SPEC
+        specs["ssm"] = M.mamba2_specs()
+        return specs
+    specs["ln_mlp"] = L.RMSNORM_SPEC
+    if kind.endswith("_moe"):
+        specs["moe"] = M.moe_specs(cfg.n_shared_experts)
+    else:
+        specs["mlp"] = L.swiglu_specs()
+    return specs
+
+
+def _ep_axes(mesh, router, x):
+    """The batch axes of the expert-parallel dispatch, or None where the
+    reference takes the plain one: no ``model`` axis, experts that do not
+    divide over it, no data axis, or a batch that does not divide."""
+    from repro_torch.launch.mesh import axis_sizes, batch_axes
+
+    if mesh is None:
+        return None
+    sizes = axis_sizes(mesh)
+    if "model" not in sizes or router.shape[1] % sizes["model"]:
+        return None
+    ba = batch_axes(mesh)
+    dp = 1
+    for a in ba:
+        dp *= sizes[a]
+    return ba if ba and x.shape[0] % dp == 0 else None
+
+
 def _mlp_apply(cfg, p, x, mode="train"):
     h = L.rmsnorm(x, p["ln_mlp"])
     if "moe" in p:
         # decode batches are tiny: dropless dispatch (cap = T*k) is cheap
         # and keeps decode exactly consistent with the full forward
-        out = M.moe_apply(h, p["moe"], top_k=cfg.top_k,
-                          capacity_factor=cfg.capacity_factor,
-                          dropless=(mode == "decode"),
-                          n_experts_real=cfg.n_experts)
+        mesh = spmd.mesh()
+        kw = dict(top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
+                  dropless=(mode == "decode"), n_experts_real=cfg.n_experts)
+        ba = _ep_axes(mesh, p["moe"]["router"], x)
+        if ba is not None:
+            out = M.moe_apply_ep(h, p["moe"], mesh=mesh, batch_axes=ba, **kw)
+        else:   # replicated on a mesh, as GSPMD runs a global sort
+            names, ws = zip(*L.named_leaves(p["moe"]).items())
+
+            def dense(h, *ws):
+                tree = {}
+                for name, w in zip(names, ws):
+                    *path, leaf = name.split("/")
+                    node = tree
+                    for key in path:
+                        node = node.setdefault(key, {})
+                    node[leaf] = w
+                return M.moe_apply(h, tree, **kw)
+
+            out = per_rank(dense, (h, *ws), [(None,) * 3] + [
+                (None,) * w.dim() for w in ws], (None,) * 3)
     else:
+        h = constrain(h, ("batch", None, None))
         fn = L.geglu if cfg.mlp == "geglu" else L.swiglu
         out = fn(h, p["mlp"])
     return x + out
@@ -119,6 +205,33 @@ def _ssm_meta(cfg):
                 d_conv=4, n_groups=1)
 
 
+def _q_layout(cfg, mode, seq_ok=True) -> tuple:
+    """The queries' logical axes: heads over their mesh axes, the
+    reference's, where the KV heads split evenly over them too (grouped
+    attention views the heads as (kv, group), and DTensor cannot split an
+    unevenly sharded dim where GSPMD pads); otherwise the positions in
+    train and prefill (the keys whole), and nothing in decode."""
+    mesh = spmd.mesh()
+    axes = spmd.rule("heads")
+    if mesh is None or axes is None:
+        return ("batch", None, "heads", None)
+    from repro_torch.launch.mesh import axis_sizes
+
+    sizes = axis_sizes(mesh)
+    n = 1
+    for a in ((axes,) if isinstance(axes, str) else axes):
+        n *= sizes[a]
+    if cfg.n_kv_heads % n == 0:
+        return ("batch", None, "heads", None)
+    return ("batch", "seq", None, None) if mode != "decode" and seq_ok \
+        else ("batch", None, None, None)
+
+
+def _chunked(q, k, v, q_positions, kv_positions, **kw):
+    return L.attention_chunked(q, k, v, q_positions=q_positions,
+                               kv_positions=kv_positions, **kw)
+
+
 def _attn_apply(cfg, kind, p, x, *, positions, mode, cache, enc_out,
                 enc_positions):
     """The attention half of an attention block.  Returns (x, new_cache)."""
@@ -127,38 +240,67 @@ def _attn_apply(cfg, kind, p, x, *, positions, mode, cache, enc_out,
     q, k, v = L._project_qkv(
         h, p["attn"], positions, cfg.rope_theta,
         use_rope=(kind != "enc" or cfg.rope_on_encoder))
+    q_axes = _q_layout(cfg, mode, seq_ok=not (kind == "local"
+                                             and mode == "train"))
+    q = constrain(q, q_axes)
+    # per-rank attention: keys laid out with the queries' heads, or whole
+    # (their gradient summed over the positions' axes) when the queries
+    # are split by position
+    kv_axes = ("batch", None, q_axes[2], None)
+    kv_sum = {1: "seq", 2: "seq"} if q_axes[1] == "seq" else None
     window = cfg.window if kind == "local" else 0
     if mode == "decode":
         kc, vc, cpos = cache["k"], cache["v"], cache["pos"]
-        rows = torch.arange(kc.shape[0], device=kc.device)
         slot = (positions[:, 0] % kc.shape[1]).long()
-        kc[rows, slot] = k[:, 0].to(kc.dtype)
-        vc[rows, slot] = v[:, 0].to(vc.dtype)
-        cpos[rows, slot] = positions[:, 0].to(cpos.dtype)
-        ctx = L.decode_attention(q, kc, vc, cpos, positions[:, 0],
-                                 window=window)
+        if spmd.mesh() is None:
+            rows = torch.arange(kc.shape[0], device=kc.device)
+            kc[rows, slot] = k[:, 0].to(kc.dtype)
+            vc[rows, slot] = v[:, 0].to(vc.dtype)
+            cpos[rows, slot] = positions[:, 0].to(cpos.dtype)
+        else:
+            # a sharded cache: the slot written by a mask (elementwise,
+            # local to each shard), a new cache as the reference returns
+            hit = torch.arange(kc.shape[1], device=slot.device) \
+                == slot[:, None]                             # (B, L)
+            kc = torch.where(hit[..., None, None], k.to(kc.dtype), kc)
+            vc = torch.where(hit[..., None, None], v.to(vc.dtype), vc)
+            cpos = torch.where(hit, positions[:, :1].to(cpos.dtype), cpos)
+            new_cache = dict(cache, k=kc, v=vc, pos=cpos)
+        ctx = per_rank(
+            functools.partial(L.decode_attention, window=window),
+            (q, kc, vc, cpos, positions[:, 0]),
+            (q_axes, kv_axes, kv_axes, ("batch", None), ("batch",)), q_axes)
     elif kind == "local" and mode == "train":
-        ctx = L.local_attention_banded(q, k, v, cfg.window)
+        ctx = per_rank(functools.partial(L.local_attention_banded,
+                                         window=cfg.window),
+                       (q, k, v), (q_axes, kv_axes, kv_axes), q_axes, kv_sum)
     else:
-        ctx = L.attention_chunked(
-            q, k, v, causal=kind != "enc", kv_block=cfg.kv_block,
-            q_positions=positions, kv_positions=positions, window=window)
+        ctx = per_rank(
+            functools.partial(_chunked, causal=kind != "enc",
+                              kv_block=cfg.kv_block, window=window),
+            (q, k, v, positions, positions),
+            (q_axes, kv_axes, kv_axes, q_axes[:2], ("batch", None)),
+            q_axes, kv_sum)
         if mode == "prefill":
             keep = min(cfg.window, k.shape[1]) if kind == "local" else k.shape[1]
             new_cache = {"k": k[:, -keep:], "v": v[:, -keep:],
                          "pos": positions[:, -keep:]}
+    if q_axes[1] == "seq":      # the output projection merges (batch, seq)
+        ctx = constrain(ctx, ("batch", None, None, None))
     x = x + L.attn_out(ctx, p["attn"])
     if kind == "xattn":
         h = L.rmsnorm(x, p["ln_cross"])
         dt = h.dtype
-        qx = torch.einsum("bsd,dhk->bshk", h, p["cross"]["wq"].to(dt))
-        kx = torch.einsum("bsd,dhk->bshk", enc_out,
-                          p["cross"]["wk"].to(enc_out.dtype))
-        vx = torch.einsum("bsd,dhk->bshk", enc_out,
-                          p["cross"]["wv"].to(enc_out.dtype))
-        ctx = L.attention_chunked(
-            qx, kx, vx, causal=False, kv_block=cfg.kv_block,
-            q_positions=positions, kv_positions=enc_positions)
+        # the projections merge (batch, positions): whole positions
+        enc_out = constrain(enc_out, ("batch", None, None))
+        qx = spmd.project(h, p["cross"]["wq"].to(dt))
+        kx = spmd.project(enc_out, p["cross"]["wk"].to(enc_out.dtype))
+        vx = spmd.project(enc_out, p["cross"]["wv"].to(enc_out.dtype))
+        ctx = per_rank(
+            functools.partial(_chunked, causal=False, kv_block=cfg.kv_block),
+            (qx, kx, vx, positions, enc_positions),
+            (("batch", None, None, None),) * 3 + (("batch", None),) * 2,
+            ("batch", None, None, None))
         x = x + L.attn_out(ctx, p["cross"])
     return x, new_cache
 
@@ -233,6 +375,12 @@ def _stack_init(generator, cfg, pattern, n_layers) -> list[dict]:
     """The parameter trees of ``n_layers`` blocks following ``pattern``
     cyclically, as a flat list."""
     return [block_init(generator, cfg, pattern[i % len(pattern)])
+            for i in range(n_layers)]
+
+
+def _stack_specs(cfg, pattern, n_layers) -> list[dict]:
+    """The logical axes of :func:`_stack_init`'s blocks."""
+    return [block_specs(cfg, pattern[i % len(pattern)])
             for i in range(n_layers)]
 
 

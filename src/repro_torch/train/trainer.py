@@ -14,8 +14,16 @@
 A step is ``Model.loss``, its gradients (``torch.autograd.grad``) and the
 optimizer's in-place update, on the model's device (``cuda`` unless the
 model was built for the CPU).  ``train_step`` is an attribute, so a
-caller can wrap it.  The reference's mesh and batch sharding have no
-counterpart: the port trains on one device.
+caller can wrap it.
+
+The mesh half: ``Trainer(model, cfg, mesh=..., batch_spec=...)`` lays the
+parameters out by the sharding plan (``launch.sharding.shard_params``)
+and the optimizer state by ``mirror_opt_shardings``, feeds batches
+sharded over ``batch_spec``, and runs the same step SPMD on DTensors
+(under ``implicit_replication``); every rank of the mesh runs
+:meth:`Trainer.run`.  The activation rules are the caller's
+(``transformer.set_mesh_rules``, as ``launch/train.py`` installs them).
+With no mesh it runs exactly as on one device.
 """
 from __future__ import annotations
 
@@ -54,10 +62,11 @@ class TrainConfig:
 
 
 class Trainer:
-    def __init__(self, model, cfg: TrainConfig,
+    def __init__(self, model, cfg: TrainConfig, mesh=None, batch_spec=None,
                  on_straggler: Optional[Callable] = None):
         self.model = model
         self.cfg = cfg
+        self.mesh = mesh
         arch = model.cfg
         self.optimizer = make_optimizer(
             arch.optimizer, lr=cfg.lr, total_steps=cfg.steps,
@@ -69,6 +78,7 @@ class Trainer:
             vocab=arch.vocab, batch=cfg.batch, seq=cfg.seq, seed=cfg.seed,
             frontend_tokens=arch.n_frontend_tokens if arch.frontend else 0,
             frontend_dim=arch.frontend_dim, device=model.device,
+            mesh=mesh, batch_spec=batch_spec if batch_spec else (),
         )
         self.on_straggler = on_straggler
         self._step_times: list[float] = []
@@ -76,13 +86,18 @@ class Trainer:
 
     def _train_step(self, params, opt_state, batch, step: int):
         """One step: returns (params, opt_state, loss), the first two
-        updated in place."""
-        named = named_leaves(params)
-        loss = self.model.loss(params, batch)
-        grads = torch.autograd.grad(loss, list(named.values()),
-                                    allow_unused=True)
-        self.optimizer.update(dict(zip(named, grads)), opt_state, named, step)
-        return params, opt_state, loss.detach()
+        updated in place; on a mesh, the loss gathered whole."""
+        with _spmd(self.mesh):
+            named = named_leaves(params)
+            loss = self.model.loss(params, batch)
+            grads = torch.autograd.grad(loss, list(named.values()),
+                                        allow_unused=True)
+            self.optimizer.update(dict(zip(named, grads)), opt_state, named,
+                                  step)
+            loss = loss.detach()
+            if self.mesh is not None:
+                loss = loss.full_tensor()
+        return params, opt_state, loss
 
     # ------------------------------------------------------------------
     def init_state(self, generator: Optional[torch.Generator] = None):
@@ -92,7 +107,19 @@ class Trainer:
             generator = torch.Generator(device=self.model.device)
             generator.manual_seed(self.cfg.seed)
         params = self.model.init(generator).requires_grad_()
-        return {"params": params, "opt": self.optimizer.init(params),
+        if self.mesh is None:
+            opt = self.optimizer.init(params)
+        else:
+            from repro_torch.launch import sharding
+
+            plan = sharding.DEFAULT_PLAN
+            sharding.shard_params(self.model, params, self.mesh, plan)
+            with _spmd(self.mesh):
+                opt = self.optimizer.init(params)
+            opt = sharding.shard_tree(opt, sharding.mirror_opt_shardings(
+                sharding.param_shardings(self.model, params, self.mesh, plan),
+                opt, self.mesh))
+        return {"params": params, "opt": opt,
                 "step": torch.zeros((), dtype=torch.int32)}
 
     def run(self, state=None, steps=None):
@@ -148,3 +175,15 @@ class Trainer:
             z = (dt - mu) / sd
             if z > self.cfg.straggler_zscore and self.on_straggler:
                 self.on_straggler(step=step, zscore=z, dt=dt)
+
+
+def _spmd(mesh):
+    """On a mesh, plain tensors made inside the step count as replicated
+    DTensors; without one, nothing."""
+    import contextlib
+
+    if mesh is None:
+        return contextlib.nullcontext()
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    return implicit_replication()

@@ -58,6 +58,10 @@ def test_port_imports_neither_jax_nor_repro():
         "repro_torch.optim", "repro_torch.optim.optimizer",
         "repro_torch.data", "repro_torch.data.pipeline",
         "repro_torch.checkpoint", "repro_torch.checkpoint.checkpoint",
+        "repro_torch.launch", "repro_torch.launch.mesh",
+        "repro_torch.launch.sharding", "repro_torch.launch.train",
+        "repro_torch.launch.dryrun",
+        "repro_torch.roofline", "repro_torch.roofline.analysis",
     } <= set(report["modules"])
 
 
