@@ -6,7 +6,7 @@ Run from the root of a checkout, on a machine with one CUDA card::
 
 It builds the CUDA tile kernels from ``src/repro_torch/kernels/csrc`` into
 ``build/repro_torch_kernels/`` (one ``nvcc`` per kernel, all at once), then
-runs seventeen phases, each printing JSON lines:
+runs eighteen phases, each printing JSON lines:
 
   1. device    the card's name and power limit (``nvidia-smi``), versions;
   2. build     kernels built and seconds;
@@ -179,7 +179,23 @@ runs seventeen phases, each printing JSON lines:
                H100's numbers; (5) ``analyze_step`` of (1)'s step: the
                counted FLOPs beside the analytic bound and the compute
                term's share of the measured step.  Any failure fails the
-               run; the sharded path launches no stencil kernel.
+               run; the sharded path launches no stencil kernel;
+ 18. examples  each of the port's six examples (``examples_torch/``,
+               ``EXAMPLES``) on the card with its default device, all
+               six at once, each in a process of its own
+               (``chip_smoke.py --example-child``, which also reports the
+               tile kernels' launch counts of its run): one line per
+               example with its wall time and its own check, read from
+               what it printed: quickstart's max |err| against the oracle
+               within the tolerance ``numerics.tolerance_for`` certifies;
+               serve_stencils bitwise equal to single-shot ``serve()`` in
+               all four parts and a warm replica that ranks nothing and
+               compiles nothing; stencil_multidevice ``correct=True`` for
+               all four configs; train_lm at ``--preset 100m --steps 30``
+               with a falling loss (checkpoints under ``build/examples``,
+               deleted after); serve_lm generating tokens; elastic_restart
+               restoring identical parameters.  The three stencil examples
+               must launch K1.
 
 Then one JSON line lists every kernel with its launches, error and times,
 and the last line is ``{"ok": true, "device": {...}}``.  Any failure
@@ -326,6 +342,15 @@ LM_LAUNCH_EP_BATCH = (8, 256)
 LM_LAUNCH_CELLS = (("mamba2_130m", "decode_32k", False),
                    ("internlm2_1_8b", "decode_32k", True),
                    ("granite_3_2b", "train_4k", False))
+# phase examples: each of the port's examples (examples_torch/) on the
+# card with its default device, as a process of its own, and the
+# arguments it is run with; train_lm at the 100m preset for 30 steps, its
+# checkpoints in a fresh directory under build/ (deleted after)
+EXAMPLES = (("quickstart", ()), ("serve_stencils", ()),
+            ("stencil_multidevice", ()),
+            ("train_lm", ("--preset", "100m", "--steps", "30")),
+            ("serve_lm", ()), ("elastic_restart", ()))
+STENCIL_EXAMPLES = ("quickstart", "serve_stencils", "stencil_multidevice")
 
 
 def emit(**fields) -> None:
@@ -1378,6 +1403,7 @@ def lm_launch_phase(dev, root: Path, kernel_launches):
                        bottleneck=rep["bottleneck"],
                        roofline_fraction=rep["roofline_fraction"],
                        useful_flops_ratio=rep["useful_flops_ratio"],
+                       flops_per_rank=rep["hlo_flops"] / rep["chips"],
                        collective_bytes_per_rank=rep[
                            "collective_bytes_per_chip"],
                        collective_counts=rep["collective_detail"]["counts"],
@@ -1406,6 +1432,125 @@ def lm_launch_phase(dev, root: Path, kernel_launches):
             child.wait()
     check(kernel_launches() == launches_before,
           "lm_launch: the sharded path launched a stencil kernel")
+
+
+def example_child(name: str, out_json: str, *args: str) -> int:
+    """Phase ``examples``' child: ``examples_torch/<name>.py``'s ``main``
+    with ``args`` (the default device: the card), then the tile kernels'
+    launch counts of the run, the tolerance quickstart certifies and the
+    seconds from here to the end (imports included), written to
+    ``out_json``.  The example's own lines go to stdout."""
+    import importlib.util
+
+    t0 = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    sys.path.insert(0, str(root / "src"))
+    from repro_torch.kernels import pipeline, stencil
+
+    spec = importlib.util.spec_from_file_location(
+        f"example_{name}", root / "examples_torch" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    got = module.main(list(args))
+    sys.stdout.flush()
+    Path(out_json).write_text(json.dumps(dict(
+        launches={"stencil_cuda": stencil.stencil_cuda.launches,
+                  "stencil_cuda_batched":
+                  pipeline.stencil_cuda_batched.launches},
+        tolerance=got.get("tolerance"), wall_s=time.perf_counter() - t0)))
+    return 0
+
+
+def example_checks(name: str, out: str, child: dict) -> dict:
+    """The example's own check, read from what it printed; raises if it
+    does not hold.  Returns the values read."""
+    def grab(pattern, cast=str):
+        return [cast(m) for m in re.findall(pattern, out)]
+
+    k1 = child["launches"]["stencil_cuda"]
+    if name in STENCIL_EXAMPLES:
+        check(k1 > 0, f"examples: {name} launched no tile kernel")
+    if name == "quickstart":
+        err = grab(r"max \|err\| vs oracle = (\S+)", float)
+        check(len(err) == 1 and err[0] <= child["tolerance"],
+              f"examples: quickstart error {err} over "
+              f"{child['tolerance']}")
+        return dict(max_abs_err=err[0], tolerance=child["tolerance"])
+    if name == "serve_stencils":
+        bitwise = grab(r"bitwise equal to single-shot serve\(\): (\w+)")
+        warm = re.search(r"warm restart: first result in (\d+) ms "
+                         r"\(autotune_calls=(\d+), jit_builds=(\d+)", out)
+        check(bitwise == ["True"] * 4 and warm is not None
+              and warm[2] == "0" and warm[3] == "0",
+              f"examples: serve_stencils bitwise {bitwise}, warm {warm}")
+        cold = re.search(r"cold replica: first result in (\d+) ms", out)
+        return dict(bitwise_parts=len(bitwise), warm_autotune_calls=0,
+                    warm_jit_builds=0, cold_first_result_ms=int(cold[1]),
+                    warm_first_result_ms=int(warm[1]))
+    if name == "stencil_multidevice":
+        correct = grab(r"correct=(\w+)")
+        check(correct == ["True"] * 4, f"examples: multidevice {correct}")
+        return dict(ms={v: float(ms) for v, ms in re.findall(
+            r"^  (\w+) +k=\d+ s=\d+: +(\S+) ms", out, re.M)})
+    if name == "train_lm":
+        m = re.search(r"final loss (\S+) \(start (\S+)\)", out)
+        check(m is not None and float(m[1]) < float(m[2]),
+              f"examples: train_lm's loss did not fall: {out[-600:]}")
+        return dict(final_loss=float(m[1]), first_loss=float(m[2]))
+    if name == "serve_lm":
+        m = re.search(r"generated (\d+) tokens", out)
+        warm = grab(r"warm: (\S+) tok/s", float)
+        check(m is not None and int(m[1]) > 0, "examples: serve_lm "
+              "generated no token")
+        return dict(tokens=int(m[1]), warm_tokens_per_s=warm[0])
+    m = re.search(r"params identical after reshard-restore: (\w+)", out)
+    check(m is not None and m[1] == "True",
+          "examples: elastic_restart's parameters differ after restore")
+    return dict(identical=True)
+
+
+def examples_phase(root: Path, kernel_launches):
+    """Phase ``examples`` (see the module docstring): yields one result
+    per example.  The six run at once, each in its own process on the
+    card, so the phase takes about as long as the slowest."""
+    import os
+
+    work = root / "build" / "examples"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    launches_before = kernel_launches()
+    runs = []
+    t_phase = time.perf_counter()
+    try:
+        for name, args in EXAMPLES:
+            if name == "train_lm":
+                args = args + ("--ckpt-dir", str(work / "train_lm_ckpt"))
+            child_json = work / f"{name}.json"
+            runs.append((name, args, child_json, subprocess.Popen(
+                [sys.executable, str(root / "chip_smoke.py"),
+                 "--example-child", name, str(child_json), *args],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                env=env)))
+        for name, args, child_json, proc in runs:
+            out, err = proc.communicate(timeout=600)
+            check(proc.returncode == 0, f"examples: {name} failed: "
+                  f"{err[-3000:]}")
+            child = json.loads(child_json.read_text())
+            yield dict(example=name, command="python examples_torch/"
+                       f"{name}.py " + " ".join(args),
+                       wall_s=child["wall_s"], concurrent=len(runs),
+                       phase_s=time.perf_counter() - t_phase,
+                       launches=child["launches"],
+                       **example_checks(name, out, child))
+    finally:
+        for *_, proc in runs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(work, ignore_errors=True)
+    check(kernel_launches() == launches_before,
+          "examples: this process launched a kernel")
 
 
 def cold_start_child(store_dir: str, build_root: str, out_npy: str,
@@ -2308,6 +2453,10 @@ def main() -> int:
     for got in lm_launch_phase(dev, root, kernel_launches):
         emit(phase="lm_launch", nvidia_smi=smi, **got)
 
+    # ---- 18. examples: the port's examples, each in its own process -------
+    for got in examples_phase(root, kernel_launches):
+        emit(phase="examples", nvidia_smi=smi, **got)
+
     kernels = [
         dict(name="stencil_cuda", route="cuda",
              source="src/repro_torch/kernels/csrc/stencil_tile.cuh",
@@ -2338,4 +2487,6 @@ if __name__ == "__main__":
         sys.exit(cold_start_child(*sys.argv[2:6]))
     if sys.argv[1:2] == ["--lm-launch-child"]:
         sys.exit(lm_launch_child(*sys.argv[2:4]))
+    if sys.argv[1:2] == ["--example-child"]:
+        sys.exit(example_child(*sys.argv[2:]))
     sys.exit(main())

@@ -27,6 +27,7 @@ from repro_torch.launch.mesh import batch_axes, make_host_mesh
 from repro_torch.models import transformer as T
 from repro_torch.models.model_zoo import build_model
 from repro_torch.train import TrainConfig, Trainer
+from repro_torch.train.trainer import log
 
 
 def main(argv=None):
@@ -73,7 +74,7 @@ def main(argv=None):
                                 "batch": batch_axes(mesh)})
         batch_spec = ("data",)
         if rank == 0:
-            print(f"mesh: {dict(zip(mesh.mesh_dim_names, mesh.shape))}")
+            log(f"mesh: {dict(zip(mesh.mesh_dim_names, mesh.shape))}")
     model = build_model(cfg, device=device)
 
     try:
@@ -85,8 +86,8 @@ def main(argv=None):
             batch_spec=batch_spec)
         state, losses = trainer.run()
         if rank == 0:
-            print(f"done: arch={cfg.name} steps={int(state['step'])} "
-                  f"loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+            log(f"done: arch={cfg.name} steps={int(state['step'])} "
+                f"loss {losses[0]:.4f} -> {losses[-1]:.4f}")
     finally:
         if mesh is not None:
             import torch.distributed as dist

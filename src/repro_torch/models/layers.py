@@ -188,18 +188,18 @@ def swiglu_specs():
 
 def swiglu(x, p):
     dt = x.dtype
-    h = x @ p["wi"].to(dt)
-    g = x @ p["wg"].to(dt)
+    h = spmd.product(torch.matmul, x, p["wi"].to(dt), spmd.COLUMN["mlp"])
+    g = spmd.product(torch.matmul, x, p["wg"].to(dt), spmd.COLUMN["mlp"])
     h = F.silu(g) * h
-    return h @ p["wo"].to(dt)
+    return spmd.product(torch.matmul, h, p["wo"].to(dt), spmd.ROW_MLP)
 
 
 def geglu(x, p):
     dt = x.dtype
-    h = x @ p["wi"].to(dt)
-    g = x @ p["wg"].to(dt)
+    h = spmd.product(torch.matmul, x, p["wi"].to(dt), spmd.COLUMN["mlp"])
+    g = spmd.product(torch.matmul, x, p["wg"].to(dt), spmd.COLUMN["mlp"])
     h = F.gelu(g, approximate="tanh") * h   # jax.nn.gelu's default
-    return h @ p["wo"].to(dt)
+    return spmd.product(torch.matmul, h, p["wo"].to(dt), spmd.ROW_MLP)
 
 
 # --------------------------------------------------------------------------
@@ -379,7 +379,8 @@ def decode_attention(q, k_cache, v_cache, cache_positions, q_position,
 
 
 def attn_out(ctx, p):
-    return torch.einsum("bshk,hkd->bsd", ctx, p["wo"].to(ctx.dtype))
+    return spmd.product(lambda c, w: torch.einsum("bshk,hkd->bsd", c, w),
+                        ctx, p["wo"].to(ctx.dtype), spmd.ROW_HEADS)
 
 
 # --------------------------------------------------------------------------
@@ -397,8 +398,15 @@ def embed(tokens, table, dtype):
     return table[tokens].to(dtype)
 
 
+def _logits(h, table):
+    """h (B,S,D) times table (V,D) transposed: (B,S,V), vocabulary-parallel
+    on a mesh."""
+    return spmd.product(lambda a, t: torch.einsum("bsd,vd->bsv", a, t),
+                        h, table, spmd.COLUMN["vocab"])
+
+
 def unembed(x, table):
-    return torch.einsum("bsd,vd->bsv", x, table.to(x.dtype))
+    return _logits(x, table.to(x.dtype))
 
 
 def _chunk_stats(h, tc, tgt, m, l, tlogit, first: int, V: int):
@@ -406,7 +414,7 @@ def _chunk_stats(h, tc, tgt, m, l, tlogit, first: int, V: int):
     table) folded into the online logsumexp ``(m, l)`` and the target
     logit."""
     Vc = tc.shape[0]
-    logits = spmd.rows_by_table(h.float(), tc.to(h.dtype).float())
+    logits = _logits(h.float(), tc.to(h.dtype).float())
     vidx = first + torch.arange(Vc, device=h.device)
     logits = torch.where(vidx < V, logits, -1e30)       # vocabulary padding
     m_new = torch.maximum(m, logits.amax(-1))
@@ -414,7 +422,7 @@ def _chunk_stats(h, tc, tgt, m, l, tlogit, first: int, V: int):
         logits - m_new[..., None]).sum(-1)
     local = tgt - first
     in_chunk = (local >= 0) & (local < Vc)
-    got = torch.gather(logits, -1, local.clamp(0, Vc - 1)[..., None])[..., 0]
+    got = spmd.take_last(logits, local.clamp(0, Vc - 1))
     return m_new, l, torch.where(in_chunk, got, tlogit)
 
 

@@ -512,8 +512,11 @@ def _rglru_gates(xc, p):
     """The recurrence's (a, b), float32: gates in the activation dtype,
     ``log_a``, ``a`` and ``b`` in float32."""
     dt = xc.dtype
-    r = torch.sigmoid(xc @ p["wa"].to(dt) + p["ba"].to(dt))
-    i = torch.sigmoid(xc @ p["wx"].to(dt) + p["bx"].to(dt))
+    col = spmd.COLUMN["mlp"]    # on a mesh, the gates by channel as ``xc``
+    r = torch.sigmoid(spmd.product(torch.matmul, xc, p["wa"].to(dt), col)
+                      + p["ba"].to(dt))
+    i = torch.sigmoid(spmd.product(torch.matmul, xc, p["wx"].to(dt), col)
+                      + p["bx"].to(dt))
     log_a = -_C_RGLRU * F.softplus(p["Lambda"]) * r.float()   # (B,S,w) <= 0
     a = torch.exp(log_a)
     mult = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-12))
@@ -544,8 +547,13 @@ def rglru_apply(x, p, *, state=None, return_state=False, chunk=256):
     """
     dt = x.dtype
     B, S, _ = x.shape
-    xw = x @ p["in_x"].to(dt)
-    gate = F.gelu(x @ p["in_gate"].to(dt), approximate="tanh")
+    # on a mesh the block is channel-parallel over the ``mlp`` axes, as an
+    # MLP: the input projections column-parallel, the conv, gates and scan
+    # per channel, the output projection row-parallel
+    col = spmd.COLUMN["mlp"]
+    xw = spmd.product(torch.matmul, x, p["in_x"].to(dt), col)
+    gate = F.gelu(spmd.product(torch.matmul, x, p["in_gate"].to(dt), col),
+                  approximate="tanh")
     conv_state = None if state is None else state["conv"]
     xc, new_conv = _causal_conv(xw, p["conv_w"], p["conv_b"], conv_state)
     w = xc.shape[-1]
@@ -567,9 +575,7 @@ def rglru_apply(x, p, *, state=None, return_state=False, chunk=256):
         h_in = h_t[:, -1]
         hs.append(h_t.to(dt))
     h = torch.cat(hs, dim=1)[:, :S]
-    # whole positions on a mesh: the projection merges (batch, positions)
-    y = spmd.constrain(h * gate, ("batch", None, None))
-    out = y @ p["out"].to(dt)
+    out = spmd.product(torch.matmul, h * gate, p["out"].to(dt), spmd.ROW_MLP)
     if return_state:
         return out, {"conv": new_conv, "h": h_in}
     return out

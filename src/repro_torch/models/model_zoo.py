@@ -184,12 +184,7 @@ class Model:
                                 enc_out=enc_out, enc_positions=enc_pos)
         tgt = torch.where(valid, targets, 0)
         logp = torch.log_softmax(logits.float(), dim=-1)
-        if spmd.mesh() is None:
-            nll = -torch.gather(logp, -1, tgt[..., None])[..., 0]
-        else:           # DTensor's gather backward makes global zeros
-            hit = torch.arange(logp.shape[-1], device=self.device) \
-                == tgt[..., None]
-            nll = -torch.where(hit, logp, 0.0).sum(-1)
+        nll = -spmd.take_last(logp, tgt)
         nll = torch.where(valid, nll, 0.0)
         return nll.sum() / torch.clamp_min(valid.sum(), 1)
 

@@ -19,11 +19,17 @@ does and DTensor cannot:
     ``local_map``), as GSPMD partitions an op DTensor has no rule for
     (attention, the embedding lookup, a dispatch that is not
     expert-parallel);
+  * :func:`product` lays out both operands of a weight product and its
+    result by logical axes, so that one strategy of DTensor's costs no
+    redistribution and the plan, not DTensor's choice among costlier
+    ones, decides the partitioning (column-parallel q/k/v, MLP input and
+    unembedding products, row-parallel output projections), the same on
+    every torch version; :func:`take_last` picks one entry of a last dim
+    that may be sharded;
   * :func:`even_split` gathers a dim before a view that would split it
     unevenly (8 or 32 heads over 16 ranks), where GSPMD pads;
     :func:`project` is a head projection that goes through it, forward
-    and backward, and :func:`rows_by_table` a product that merges no
-    sharded dim;
+    and backward;
   * :func:`grad_as_param` brings a parameter's gradient back in the
     parameter's layout, so a tied table's two gradients add;
   * ``constrain`` and ``per_rank`` keep a dim whole where its mesh axes
@@ -138,20 +144,89 @@ class _MergeHeads(torch.autograd.Function):
 
 def project(x, w):
     """x (B,S,D) @ w (D,H,K) -> (B,S,H,K): the product over the merged
-    (H*K) columns, then the split into heads."""
+    (H*K) columns, column-parallel over the heads' mesh axes, then the
+    split into heads."""
     H, K = w.shape[1:]
-    y = torch.einsum("bsd,de->bse", x, _MergeHeads.apply(w))
+    y = product(lambda a, b: torch.einsum("bsd,de->bse", a, b),
+                x, _MergeHeads.apply(w), COLUMN["heads"])
     return even_split(y, -1, H).reshape(*y.shape[:-1], H, K)
 
 
-def rows_by_table(h, table):
-    """h (B,S,D) times table (V,D) transposed: (B,S,V).  A DTensor ``h``
-    takes a product batched over B, which merges no dim (its B and S may
-    both be sharded, and DTensor cannot merge a dim sharded behind
-    another); a plain one takes one product over the merged (B*S) rows."""
-    if _is_dtensor(h):
-        return torch.bmm(h, table.t().expand(h.shape[0], -1, -1))
-    return torch.einsum("bsd,vd->bsv", h, table)
+def _spec(shape, logical, m) -> tuple:
+    """The mesh axes of each dim of ``shape`` laid out by ``logical`` under
+    the installed rules.  A dim its mesh axes do not divide is sharded
+    unevenly, as DTensor shards (``torch.chunk``'s split) where GSPMD pads,
+    if no rank's shard is empty (a vocabulary of 49155 over 16 ranks), and
+    whole otherwise (a batch of 1); a mesh axis shards one dim at most."""
+    from repro_torch.launch.mesh import axis_sizes
+
+    sizes, used, out = axis_sizes(m), set(), []
+    for n, name in zip(shape, logical):
+        axes = rule(name) if name is not None else None
+        axes = tuple(a for a in ((axes,) if isinstance(axes, str)
+                                 else axes or ()) if a not in used)
+        k = math.prod(sizes[a] for a in axes)
+        if not axes or (n % k and -(-n // k) * (k - 1) >= n):
+            out.append(None)
+            continue
+        used.update(axes)
+        out.append(axes)
+    return tuple(out)
+
+
+def layout(t, logical: tuple):
+    """``t`` (a DTensor) redistributed to ``logical`` under the installed
+    rules, a dim sharded unevenly where :func:`_spec` allows it; the
+    identity without a mesh or for a tensor that is not a DTensor."""
+    m = mesh()
+    if m is None or not _is_dtensor(t):
+        return t
+    from repro_torch.launch.sharding import to_placements
+
+    return t.redistribute(m, to_placements(_spec(t.shape, logical, m), m))
+
+
+def _column(axis):
+    return (("batch", None, None), (None, axis), ("batch", None, axis))
+
+
+# The logical axes (the activation's, the weight's, the result's) of the
+# model's weight products: column-parallel over an axis (whole positions
+# in; the weight's columns and the result's last dim over the axis), and
+# row-parallel (the contraction over ``mlp`` or ``heads``; the sum
+# reduce-scattered onto positions, the Megatron-SP residual stream).
+COLUMN = {axis: _column(axis) for axis in ("heads", "mlp")}
+COLUMN["vocab"] = (("batch", None, None), ("vocab", None),
+                   ("batch", None, "vocab"))      # a (V, D) table
+ROW_MLP = (("batch", None, "mlp"), ("mlp", None), ("batch", "seq", None))
+ROW_HEADS = (("batch", None, "heads", None), ("heads", None, None),
+             ("batch", "seq", None))
+
+
+def product(fn, x, w, axes):
+    """``fn(x, w)``, a product of an activation ``x`` and a weight ``w``,
+    with ``x``, ``w`` and the result laid out by ``axes`` = (``x``'s,
+    ``w``'s, the result's logical axes), e.g. :data:`COLUMN` or
+    :data:`ROW_MLP`.  The operands' layouts match one of DTensor's
+    strategies for the product exactly, forward and backward, so DTensor
+    takes that one and redistributes nothing inside it: the partitioning
+    is the plan's, whatever torch's version costs its other strategies
+    at.  Without a mesh, or on tensors that are not DTensors,
+    ``fn(x, w)``."""
+    if mesh() is None or not (_is_dtensor(x) or _is_dtensor(w)):
+        return fn(x, w)
+    xa, wa, oa = axes
+    return layout(fn(layout(x, xa), layout(w, wa)), oa)
+
+
+def take_last(t, idx):
+    """``t[..., idx]`` per row: ``torch.gather`` along the last dim; on a
+    DTensor a masked sum, which a last dim sharded over ranks reduces
+    without gathering (DTensor's gather backward makes global zeros)."""
+    if not _is_dtensor(t):
+        return torch.gather(t, -1, idx[..., None])[..., 0]
+    hit = torch.arange(t.shape[-1], device=idx.device) == idx[..., None]
+    return torch.where(hit, t, 0.0).sum(-1)
 
 
 class _GradAsParam(torch.autograd.Function):

@@ -192,7 +192,6 @@ def _mlp_apply(cfg, p, x, mode="train"):
             out = per_rank(dense, (h, *ws), [(None,) * 3] + [
                 (None,) * w.dim() for w in ws], (None,) * 3)
     else:
-        h = constrain(h, ("batch", None, None))
         fn = L.geglu if cfg.mlp == "geglu" else L.swiglu
         out = fn(h, p["mlp"])
     return x + out
@@ -285,8 +284,6 @@ def _attn_apply(cfg, kind, p, x, *, positions, mode, cache, enc_out,
             keep = min(cfg.window, k.shape[1]) if kind == "local" else k.shape[1]
             new_cache = {"k": k[:, -keep:], "v": v[:, -keep:],
                          "pos": positions[:, -keep:]}
-    if q_axes[1] == "seq":      # the output projection merges (batch, seq)
-        ctx = constrain(ctx, ("batch", None, None, None))
     x = x + L.attn_out(ctx, p["attn"])
     if kind == "xattn":
         h = L.rmsnorm(x, p["ln_cross"])

@@ -28,6 +28,7 @@ With no mesh it runs exactly as on one device.
 from __future__ import annotations
 
 import dataclasses
+import sys
 import time
 from typing import Callable, Optional
 
@@ -42,6 +43,14 @@ from repro_torch.checkpoint import (
 from repro_torch.data.pipeline import SyntheticLMData
 from repro_torch.models.layers import named_leaves
 from repro_torch.optim import make_optimizer
+
+
+def log(line: str) -> None:
+    """``line`` and its newline to stdout in one write, flushed: the ranks
+    of a mesh share the stream, and ``print`` writes the two apart (an
+    unbuffered stream lets another rank's text in between)."""
+    sys.stdout.write(line + "\n")
+    sys.stdout.flush()
 
 
 @dataclasses.dataclass
@@ -133,7 +142,7 @@ class Trainer:
             state = self.init_state()
             if cfg.ckpt_dir and (last := latest_step(cfg.ckpt_dir)) is not None:
                 state = restore_checkpoint(cfg.ckpt_dir, last, state)
-                print(f"[trainer] resumed from step {last}")
+                log(f"[trainer] resumed from step {last}")
         state["params"].requires_grad_()
         start = int(state["step"])
         total = steps if steps is not None else cfg.steps
@@ -153,8 +162,8 @@ class Trainer:
             dt = time.perf_counter() - t0
             self._check_straggler(step, dt)
             if step % cfg.log_every == 0:
-                print(f"[trainer] step {step} loss {losses[-1]:.4f} "
-                      f"({dt*1e3:.0f} ms)")
+                log(f"[trainer] step {step} loss {losses[-1]:.4f} "
+                    f"({dt*1e3:.0f} ms)")
             if ckpt and (step + 1) % cfg.ckpt_every == 0:
                 ckpt.save(step + 1, state)
         if ckpt:

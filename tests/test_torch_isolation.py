@@ -3,7 +3,10 @@
 In a fresh interpreter with ``sys.modules["jax"] = None`` (so any import
 of JAX fails), every module of ``repro_torch`` and ``chip_smoke`` (whose
 work sits under ``if __name__ == "__main__"``) must import, and no
-``repro`` module may have been loaded.
+``repro`` module may have been loaded.  The same holds for the port's
+examples (``examples_torch/*.py``, work under ``main``) and its scripts
+(``scripts/lint_stencils_torch.py``; ``scripts/ci_torch.sh`` runs only
+the port's files).
 """
 from __future__ import annotations
 
@@ -75,3 +78,50 @@ def test_port_sources_never_name_jax_or_repro():
                 assert not mod.startswith(("jax", "repro.")) and mod != "repro", (
                     f"{path.relative_to(ROOT)}: {line.strip()}"
                 )
+
+
+EXAMPLES = sorted((ROOT / "examples_torch").glob("*.py"))
+LINT_SCRIPT = ROOT / "scripts" / "lint_stencils_torch.py"
+CI_SCRIPT = ROOT / "scripts" / "ci_torch.sh"
+
+FILES_SCRIPT = r"""
+import importlib.util, json, sys
+sys.modules["jax"] = None
+for i, path in enumerate(sys.argv[1:]):
+    spec = importlib.util.spec_from_file_location(f"_port_file_{i}", path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+loaded = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro."))
+jax = sorted(m for m in sys.modules if (m == "jax" or m.startswith("jax."))
+             and sys.modules[m] is not None)
+print(json.dumps({"repro": loaded, "jax": jax}))
+"""
+
+
+def test_examples_and_scripts_import_neither_jax_nor_repro():
+    assert {p.name for p in EXAMPLES} == {
+        "quickstart.py", "serve_stencils.py", "stencil_multidevice.py",
+        "train_lm.py", "serve_lm.py", "elastic_restart.py"}
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run(
+        [sys.executable, "-c", FILES_SCRIPT, *map(str, EXAMPLES),
+         str(LINT_SCRIPT)], cwd=ROOT, env=env, capture_output=True,
+        text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert report == {"repro": [], "jax": []}
+
+
+def test_examples_and_scripts_never_name_jax_or_repro():
+    """The import lines of the examples and the lint script, and every
+    command of the CI script, name the port only."""
+    for path in EXAMPLES + [LINT_SCRIPT]:
+        for line in path.read_text().splitlines():
+            code = line.split("#", 1)[0].strip()
+            if code.startswith(("import ", "from ")):
+                mod = code.split()[1]
+                assert not mod.startswith(("jax", "repro.")) and mod != "repro", (
+                    f"{path.relative_to(ROOT)}: {line.strip()}")
+    for line in CI_SCRIPT.read_text().splitlines():
+        code = line.split("#", 1)[0]
+        assert "repro." not in code and "-m repro " not in code, line
+        assert "examples/" not in code and "benchmarks/" not in code, line
