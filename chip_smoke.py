@@ -6,7 +6,9 @@ Run from the root of a checkout, on a machine with one CUDA card::
 
 It builds the CUDA tile kernels from ``src/repro_torch/kernels/csrc`` into
 ``build/repro_torch_kernels/`` (one ``nvcc`` per kernel, all at once), then
-runs eighteen phases, each printing JSON lines:
+runs nineteen phases, each printing JSON lines (each with ``t_s``, the
+seconds since the script started, so the time of a phase is the gap
+between its lines and the previous phase's):
 
   1. device    the card's name and power limit (``nvidia-smi``), versions;
   2. build     kernels built and seconds;
@@ -24,9 +26,13 @@ runs eighteen phases, each printing JSON lines:
                round loop (wrap maps consumed between rounds) against its
                plain version;
   4. main      the port's main path at the paper's sizes:
-               ``autotune(DSL, device="cuda")`` then ``design.runner``, with
+               ``autotune(DSL, device="cuda")`` then ``design.runner`` (K2
+               where the ranker picks ``buffer_depth=2``, as it does at
+               these sizes; K1 otherwise), with
                the launch counters read around the run, the error against
-               the plain version, median times and achieved bandwidth,
+               the plain version, K1 at the design's (s, tile) against the
+               same plain run and bitwise against the design's result
+               (not counted), median times and achieved bandwidth,
                then the ranker's prediction against K1's time at every
                fusion depth and tile it ranks for JACOBI2D 4096x4096
                (``sweep``), with the measured time per cell update;
@@ -45,7 +51,10 @@ runs eighteen phases, each printing JSON lines:
                the port's single-shot ``build_bucket_runner`` and within
                tolerance of the plain version of the unpadded spec; one
                line per mode gives launches, flush seconds, grids per
-               second and the padded-cell share;
+               second and the padded-cell share, and for the most used
+               micro-batch one round of K1 launched once per entry
+               against one K2 launch (what the ranker's launch term
+               prices);
   8. distribute the five SASA parallelisms of ``core/distribute.py`` on a
                pool of 4 logical devices that are all this one card
                (``[cuda] * 4``; every line says ``logical_devices: 4,
@@ -71,16 +80,17 @@ runs eighteen phases, each printing JSON lines:
                configurations of each and the best shard design, with
                their predictions; then ``autotune`` built on the pool
                ``[cuda] * 4``, whose design must run the tile kernel;
- 11. cold_start two fresh subprocesses (``chip_smoke.py --cold-start-child``)
-               share one empty store directory under ``build/``, each
+ 11. cold_start ``benchmarks_torch/cold_start.py``'s pair at the paper's
+               size: two fresh subprocesses share one empty store, each
                with a private, empty kernel build root; each serves
                JACOBI2D 9720x1024, 16 iterations, through
                ``StencilServer(device="cuda", max_batch=1, store_dir=...)``.
                The cold side must rank and run ``nvcc``; the warm side
                must rank nothing, compile nothing and load the kernel's
-               library from the store, with a bitwise equal result.  Each
-               side's time to first result (after imports) and the ratio
-               are printed, not gated;
+               library from the store, with a bitwise equal result (the
+               script's correctness gates, hard here).  Each side's time
+               to first result (after imports), its breakdown and the
+               ratio are printed; the ratio's >= 10x gate is reported;
  12. scheduler phase ``serve``'s 40 requests through ``StencilScheduler``
                over the same server: every result bitwise equal to
                ``serve()``'s, no drop; then the open-loop Poisson trace
@@ -95,7 +105,20 @@ runs eighteen phases, each printing JSON lines:
                one design killed with requests in flight: each is handed
                off and resolves bitwise equal, and ``close()`` drains and
                reaps both workers;
- 14. lm_serve  the LM substrate: ``repro_torch.serve.lm.ServeEngine`` on
+ 14. bench     the port's benchmark gates (``benchmarks_torch/``) on the
+               card at the reference's full sizes, one script after
+               another: ``serving_throughput.py`` (its six sections, the
+               cold start in two child processes), ``model_accuracy.py``
+               and ``serving_latency.py``; one line per gate with its
+               reading, bound and ``held``.  Correctness gates (bitwise,
+               drops, failures, buckets, rankings and compiles on the warm
+               side, cache hits, strictly fewer launches, launches > 0)
+               fail the run; timing gates (the ratios, p99, the rank
+               accuracy) are reported.  Then ``benchmarks_torch/run.py
+               --device cuda`` once in a child process, skipping the two
+               modules just run: its row count, and an ``ERROR`` row
+               fails the run;
+ 15. lm_serve  the LM substrate: ``repro_torch.serve.lm.ServeEngine`` on
                granite-3-2b at full width and depth (40 layers, d_model
                2048, vocab 49155; 2.53 B fp32 masters initialised on the
                card from a seeded generator).  Gates: (a) with float32
@@ -116,7 +139,7 @@ runs eighteen phases, each printing JSON lines:
                re-reading the masters, tokens/s and a profile of 4 decode
                steps.  The LM path launches no stencil kernel, and the
                phase checks that K1/K2's counts do not move;
- 15. lm_mixers the MoE, SSM and hybrid families through the same checks
+ 16. lm_mixers the MoE, SSM and hybrid families through the same checks
                as ``lm_serve``, one line per config, one after another,
                the memory of each freed before the next:
                recurrentgemma-2b (26 layers of RG-LRU and local
@@ -133,7 +156,7 @@ runs eighteen phases, each printing JSON lines:
                top_k``, where no token can drop.  For MoE the line also
                gives the served prefill's dropped share at the config's
                capacity;
- 16. lm_train  the port's ``repro_torch.train.Trainer`` at full width, one
+ 17. lm_train  the port's ``repro_torch.train.Trainer`` at full width, one
                line per config, the memory of each freed before the next:
                granite-3-2b (vocabulary 49155: the full-logits loss) and
                recurrentgemma-2b (256000: the chunked cross-entropy, and
@@ -159,7 +182,7 @@ runs eighteen phases, each printing JSON lines:
                restore s, and a profiled step's launches and busy share.
                Training launches no stencil kernel, and the phase checks
                that K1/K2's counts do not move.
- 17. lm_launch the sharded layer (``repro_torch.launch``, ``roofline``),
+ 18. lm_launch the sharded layer (``repro_torch.launch``, ``roofline``),
                one line per part: (1) ``python -m repro_torch.launch.train
                --arch granite_3_2b --steps 4 --batch 8 --seq 512`` at full
                width and depth, its ``done:`` losses and step ms; (2) the
@@ -180,7 +203,7 @@ runs eighteen phases, each printing JSON lines:
                counted FLOPs beside the analytic bound and the compute
                term's share of the measured step.  Any failure fails the
                run; the sharded path launches no stencil kernel;
- 18. examples  each of the port's six examples (``examples_torch/``,
+ 19. examples  each of the port's six examples (``examples_torch/``,
                ``EXAMPLES``) on the card with its default device, all
                six at once, each in a process of its own
                (``chip_smoke.py --example-child``, which also reports the
@@ -195,9 +218,12 @@ runs eighteen phases, each printing JSON lines:
                with a falling loss (checkpoints under ``build/examples``,
                deleted after); serve_lm generating tokens; elastic_restart
                restoring identical parameters.  The three stencil examples
-               must launch K1.
+               must launch a tile kernel (K1 or K2, as their designs
+               chose).
 
-Then one JSON line lists every kernel with its launches, error and times,
+Then one JSON line lists every kernel with its launches (from phases
+``main`` and ``bench``, each run with the counts set to 0 just before it
+and read just after; ``launches_by_phase`` gives both), error and times,
 and the last line is ``{"ok": true, "device": {...}}``.  Any failure
 raises, so the exit code is non-zero and no result line is printed.
 Imports nothing of JAX and nothing of the JAX package ``repro``.
@@ -353,7 +379,12 @@ EXAMPLES = (("quickstart", ()), ("serve_stencils", ()),
 STENCIL_EXAMPLES = ("quickstart", "serve_stencils", "stencil_multidevice")
 
 
+START = time.perf_counter()
+
+
 def emit(**fields) -> None:
+    if "phase" in fields:
+        fields["t_s"] = round(time.perf_counter() - START, 1)
     print(json.dumps(fields), flush=True)
 
 
@@ -1467,9 +1498,9 @@ def example_checks(name: str, out: str, child: dict) -> dict:
     def grab(pattern, cast=str):
         return [cast(m) for m in re.findall(pattern, out)]
 
-    k1 = child["launches"]["stencil_cuda"]
     if name in STENCIL_EXAMPLES:
-        check(k1 > 0, f"examples: {name} launched no tile kernel")
+        check(sum(child["launches"].values()) > 0,
+              f"examples: {name} launched no tile kernel")
     if name == "quickstart":
         err = grab(r"max \|err\| vs oracle = (\S+)", float)
         check(len(err) == 1 and err[0] <= child["tolerance"],
@@ -1553,77 +1584,56 @@ def examples_phase(root: Path, kernel_launches):
           "examples: this process launched a kernel")
 
 
-def cold_start_child(store_dir: str, build_root: str, out_npy: str,
-                     report_json: str) -> int:
-    """One serving replica of phase ``cold_start``, in a fresh process:
-    a store-backed server on the card, one request, one result.  Its
-    kernel build root is ``build_root`` (private and empty), so only the
-    store can spare it ``nvcc``."""
-    root = Path(__file__).resolve().parent
-    sys.path.insert(0, str(root / "src"))
-    import numpy as np
+def bench_phase(root: Path, dev):
+    """Phase ``bench`` (see the module docstring): yields one result per
+    gate, one per script and one for ``run.py``.  A correctness gate that
+    fails raises inside its script; timing gates are read and reported."""
+    import dataclasses
+    import os
 
-    from repro_torch.core import dsl
-    from repro_torch.kernels import cuda_build, pipeline, stencil
-    from repro_torch.serve import StencilRequest, StencilServer
+    from benchmarks_torch import model_accuracy, serving_latency, serving_throughput
+    from benchmarks_torch.common import Gates
 
-    cuda_build.BUILD_ROOT = Path(build_root)
-    check(not cuda_build.BUILD_ROOT.exists(),
-          f"cold_start: build root {build_root} is not empty")
-    spec = dsl.parse(COLD_DSL)
-    rng = np.random.default_rng(42)
-    arrays = {n: rng.standard_normal(shape).astype(dt)
-              for n, (dt, shape) in spec.inputs.items()}
-    # where the warm side's time goes: the library's write and load
-    install = cuda_build.install_library
-    install_s = []
-
-    def timed_install(key, blob):
-        t = time.perf_counter()
-        try:
-            return install(key, blob)
-        finally:
-            install_s.append(time.perf_counter() - t)
-
-    cuda_build.install_library = timed_install
-
+    for name, mod in (("serving_throughput", serving_throughput),
+                      ("model_accuracy", model_accuracy),
+                      ("serving_latency", serving_latency)):
+        gates = Gates()
+        t0 = time.perf_counter()
+        rows = mod.run(smoke=False, device=dev, gates=gates)
+        seconds = time.perf_counter() - t0
+        for g in gates:
+            yield dict(script=name, **dataclasses.asdict(g))
+        check(all(g.held for g in gates if g.kind == "correctness"),
+              f"bench: {name}: a correctness gate failed")
+        yield dict(script=name, seconds=seconds, rows=rows,
+                   gates=len(gates),
+                   timing_missed=[g.gate for g in gates
+                                  if g.kind == "timing" and not g.held])
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(root / "src"), str(root)]))
     t0 = time.perf_counter()
-    srv = StencilServer(device="cuda", max_batch=1, store_dir=store_dir)
-    t1 = time.perf_counter()
-    srv.register("jacobi2d", spec)
-    t2 = time.perf_counter()
-    out = srv.serve([StencilRequest("jacobi2d", arrays)])[0]
-    t3 = time.perf_counter()
-
-    np.save(out_npy, out)
-    st = srv.stats()
-    Path(report_json).write_text(json.dumps({
-        "first_result_s": t3 - t0,
-        "server_s": t1 - t0,          # CUDA context, store open
-        "register_s": t2 - t1,        # ranking or store, kernel, warmup
-        "warmup_s": st["jacobi2d"]["warmup_time_s"],   # first dispatch
-        "install_s": sum(install_s),  # store blob -> build root -> dlopen
-        "library_bytes": sum(p.stat().st_size for p in
-                             Path(build_root).glob("*/libsasa.so")),
-        "serve_s": t3 - t2,
-        "autotune_calls": st["_cache"]["autotune_calls"],
-        "jit_builds": st["_cache"]["jit_builds"],
-        "store_hits": st["_cache"]["store_hits"],
-        "store": st["_store"],
-        "nvcc_compiles": cuda_build.build_many.compiles,
-        "launches": {"stencil_cuda": stencil.stencil_cuda.launches,
-                     "stencil_cuda_batched":
-                         pipeline.stencil_cuda_batched.launches},
-        "finite": bool(np.isfinite(out).all()),
-    }))
-    return 0
+    proc = subprocess.run(
+        [sys.executable, str(root / "benchmarks_torch" / "run.py"),
+         "--device", dev.type, "--skip", "serving_throughput,model_accuracy"],
+        cwd=root, env=env, capture_output=True,
+        text=True, timeout=600)
+    rows = proc.stdout.strip().splitlines()[1:]
+    errors = [r for r in rows if "/ERROR," in r]
+    check(proc.returncode == 0 and not errors,
+          f"bench: run.py exited {proc.returncode} with {errors}: "
+          f"{proc.stderr[-3000:]}")
+    yield dict(script="run.py", device=dev.type, rows=len(rows),
+               errors=errors, seconds=time.perf_counter() - t0,
+               measured=[r for r in rows if "measured" in r],
+               elapsed_us={r.split("/")[0]: float(r.split(",")[1])
+                           for r in rows if "/elapsed," in r})
 
 
 def main() -> int:
     root = Path(__file__).resolve().parent
     if not (root / "src" / "repro_torch").is_dir():
         raise SystemExit("chip_smoke: src/repro_torch not found beside this script")
-    sys.path.insert(0, str(root / "src"))
+    sys.path[:0] = [str(root / "src"), str(root)]   # repro_torch, benchmarks_torch
 
     import dataclasses
     import warnings
@@ -1839,7 +1849,7 @@ def main() -> int:
              max_rel_err=max(errs), tol=TOL[mspec.dtype], k2_bitwise=bitwise)
 
     # ---- 4. main path -----------------------------------------------------
-    k1_main_launches = 0
+    main_launches = {"stencil_cuda": 0, "stencil_cuda_batched": 0}
     for key, shape in MAIN_CASES:
         text = dsl.format_spec(stencils.get(key, shape=shape, iterations=ITERATIONS))
         arrays = inputs(stencils.get(key, shape=shape))
@@ -1854,7 +1864,8 @@ def main() -> int:
         spec, cfg, run = design.spec, design.config, design.runner
         want_kernel = "stencil_cuda" if run.path == "single_pe" else "stencil_cuda_batched"
         check(launches[want_kernel] > 0, f"{key}: {want_kernel} never launched")
-        k1_main_launches += launches["stencil_cuda"]
+        for k, v in launches.items():
+            main_launches[k] += v
         check(out.shape == tuple(shape) and bool(np.isfinite(out).all()),
               f"{key}: output shape {out.shape} or non-finite values")
         t = ops.to_device(spec, arrays, dev)
@@ -1863,6 +1874,16 @@ def main() -> int:
         scale = max(1.0, float(plain.abs().max()))
         check(err <= TOL[spec.dtype] * scale,
               f"{key} {shape}: main path vs plain {err} > tol x {scale}")
+        # K1 at the design's (s, tile) on the same grid: held against the
+        # same plain run and bitwise against the design's result (K2 when
+        # the ranker picks it).  A comparison: its launches are not counted
+        k1_out = ops.stencil_run(spec, t, ITERATIONS, s=cfg.s,
+                                 tile=run.batched.tile)
+        k1_err = max_err(k1_out, plain)
+        k1_bitwise = bool(np.array_equal(k1_out.cpu().numpy(), out))
+        check(k1_err <= TOL[spec.dtype] * scale,
+              f"{key} {shape}: K1 vs plain {k1_err} > tol x {scale}")
+        check(k1_bitwise, f"{key} {shape}: K1 differs from the {run.path} result")
         staged = run.batched.stage({n: a[None] for n, a in arrays.items()})
         ms = timed(lambda: run.batched.dispatch(staged), reps=10, inner=5)
         plain_ms = timed(lambda: plain_run(spec, t, ITERATIONS, cfg.s,
@@ -1874,7 +1895,8 @@ def main() -> int:
              config=dict(s=cfg.s, tile=list(run.batched.tile),
                          buffer_depth=cfg.buffer_depth),
              path=run.path, launches=launches, first_call_s=round(wall, 3),
-             max_abs_err=err, scale=scale, ms=ms, plain_ms=plain_ms,
+             max_abs_err=err, scale=scale, k1_max_abs_err=k1_err,
+             k1_bitwise=k1_bitwise, ms=ms, plain_ms=plain_ms,
              bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / ms,
              gb_per_s=nbytes / ms / 1e6,
              predicted_ms=design.prediction.latency * 1e3,
@@ -1931,8 +1953,8 @@ def main() -> int:
     stencil.stencil_cuda.launches = 0
     pipeline.stencil_cuda_batched.launches = 0
     out = run(batch)
-    k2_main_launches = pipeline.stencil_cuda_batched.launches
-    check(run.path == "tile_pipeline" and k2_main_launches > 0
+    k2_batched_launches = pipeline.stencil_cuda_batched.launches
+    check(run.path == "tile_pipeline" and k2_batched_launches > 0
           and stencil.stencil_cuda.launches == 0,
           f"batched runner went through {run.path}")
     t = ops.to_device(spec, batch, dev)
@@ -1965,7 +1987,7 @@ def main() -> int:
         spec, t, 1, run.tile), reps=3, warm=1)
     k2_bound, k2_by = bound_ms(spec, 8, 1)
     emit(phase="batched", spec=spec.name, batch=8, s=s_main,
-         tile=list(run.tile), launches=k2_main_launches,
+         tile=list(run.tile), launches=k2_batched_launches,
          k2_bitwise_vs_k1=k2_bitwise, round_ms=round_ms,
          max_abs_err=k2_err, s1_ms=k2_ms, s1_plain_ms=k2_plain_ms,
          s1_library_ms=k2_library_ms, s1_bound_ms=k2_bound, s1_bound_by=k2_by,
@@ -2082,6 +2104,15 @@ def main() -> int:
                                              chunk[:srv.max_batch])
         staged = runner.stage(stacked)
         batch_ms = timed(lambda: runner.dispatch(staged), reps=3, warm=1)
+        # what the ranker's launch term prices: one round of this
+        # micro-batch as one K2 launch and as one K1 launch per entry
+        mspec, s_r, tile_r = runner.masked_spec, runner.cfg.s, runner.tile
+        B = next(iter(staged.values())).shape[0]
+        entries = [{n: a[b] for n, a in staged.items()} for b in range(B)]
+        k2_round_ms = timed(lambda: pipeline.stencil_cuda_batched(
+            mspec, staged, s_r, tile_r), reps=10, warm=2)
+        k1_round_ms = timed(lambda: [stencil.stencil_cuda(
+            mspec, e, s_r, tile_r) for e in entries], reps=10, warm=2)
         check(bitwise, f"serve {mode}: differs from single-shot bucket runner")
         check(err <= TOL["float32"], f"serve {mode}: vs plain {err}")
         serve_err = max(serve_err, err)
@@ -2093,6 +2124,8 @@ def main() -> int:
              wrap_rounds=bd.wrap_rounds, path=entry.runner.path,
              launches=launches, flush_s=flush_s, grids_per_s=len(reqs) / flush_s,
              micro_batch_device_ms=batch_ms,
+             round_k2_once_ms=k2_round_ms, round_k1_per_entry_ms=k1_round_ms,
+             round_entries=B, round_s=s_r,
              device_busy_share=batches * batch_ms / 1e3 / flush_s,
              padded_cell_share=1.0 - real / dispatched,
              bitwise_vs_single_shot=bitwise, max_rel_err=err, tol=TOL["float32"])
@@ -2239,37 +2272,14 @@ def main() -> int:
          tile_kernel_launches=pool_launches)
 
     # ---- 11. cold_start: two fresh replicas over one store ---------------
-    cold_dir = root / "build" / "cold_start"
-    shutil.rmtree(cold_dir, ignore_errors=True)
-    cold_dir.mkdir(parents=True)
-    sides = {}
-    for side in ("cold", "warm"):
-        out_npy, report = cold_dir / f"{side}.npy", cold_dir / f"{side}.json"
-        subprocess.run(
-            [sys.executable, str(Path(__file__).resolve()),
-             "--cold-start-child", str(cold_dir / "store"),
-             str(cold_dir / f"kernels_{side}"), str(out_npy), str(report)],
-            check=True, timeout=600,
-        )
-        sides[side] = (np.load(out_npy), json.loads(report.read_text()))
-    (out_cold, cold), (out_warm, warm) = sides["cold"], sides["warm"]
-    cold_bitwise = bool(np.array_equal(out_cold, out_warm))
-    check(cold["autotune_calls"] >= 1 and cold["jit_builds"] >= 1,
-          f"cold_start: the cold side ranked {cold['autotune_calls']}x and "
-          f"compiled {cold['jit_builds']}x")
-    check(warm["autotune_calls"] == 0 and warm["jit_builds"] == 0
-          and warm["nvcc_compiles"] == 0,
-          f"cold_start: the warm side ranked {warm['autotune_calls']}x and "
-          f"compiled {warm['jit_builds']}x")
-    check(warm["store_hits"] >= 1 and warm["store"]["executable_hits"] >= 1,
-          f"cold_start: the warm side missed the store: {warm['store']}")
-    check(cold_bitwise and cold["finite"], "cold_start: warm result differs")
-    check(all(sum(x["launches"].values()) > 0 for x in (cold, warm)),
-          "cold_start: a side never launched the tile kernel")
+    from benchmarks_torch import cold_start
+    from benchmarks_torch.common import Gates
+
+    gates = Gates()   # a correctness gate that fails raises here
+    pair = cold_start.run_cold_start([], gates, dev, dsl=COLD_DSL)
     emit(phase="cold_start", spec="JACOBI2D", shape=[9720, 1024],
-         iterations=ITERATIONS, cold=cold, warm=warm,
-         cold_over_warm=cold["first_result_s"] / warm["first_result_s"],
-         bitwise=cold_bitwise)
+         iterations=ITERATIONS, **pair,
+         gates=[dataclasses.asdict(g) for g in gates])
 
     # ---- 12. scheduler: continuous batching over phase serve's server ----
     from repro_torch.serve import StencilScheduler
@@ -2432,28 +2442,39 @@ def main() -> int:
                            launches=i["launches"])
                    for n, i in after_kill.items() if i["healthy"]})
 
-    # ---- 14. lm_serve: granite-3-2b through ServeEngine -------------------
+    # ---- 14. bench: the port's benchmark gates on the card ---------------
+    stencil.stencil_cuda.launches = 0
+    pipeline.stencil_cuda_batched.launches = 0
+    for got in bench_phase(root, dev):
+        emit(phase="bench", nvidia_smi=smi, **got)
+    bench_launches = {"stencil_cuda": stencil.stencil_cuda.launches,
+                      "stencil_cuda_batched":
+                          pipeline.stencil_cuda_batched.launches}
+    check(all(v > 0 for v in bench_launches.values()),
+          f"bench: a tile kernel never launched: {bench_launches}")
+
+    # ---- 15. lm_serve: granite-3-2b through ServeEngine -------------------
     from repro_torch.configs import base as arch_configs
 
     emit(phase="lm_serve", nvidia_smi=smi, **lm_serve(
         dev, arch_configs.get(LM_ARCH), LM_TRAFFIC, gpu.hbm_bw,
         kernel_launches))
 
-    # ---- 15. lm_mixers: the MoE, SSM and hybrid families ------------------
+    # ---- 16. lm_mixers: the MoE, SSM and hybrid families ------------------
     for got in lm_mixers(dev, LM_TRAFFIC, gpu.hbm_bw, kernel_launches):
         emit(phase="lm_mixers", nvidia_smi=smi, **got)
 
-    # ---- 16. lm_train: the port's Trainer at full width ------------------
+    # ---- 17. lm_train: the port's Trainer at full width ------------------
     for got in lm_train_phase(dev, gpu.hbm_bw,
                               root / "build" / "lm_train_ckpt",
                               kernel_launches):
         emit(phase="lm_train", nvidia_smi=smi, **got)
 
-    # ---- 17. lm_launch: the sharded layer ---------------------------------
+    # ---- 18. lm_launch: the sharded layer ---------------------------------
     for got in lm_launch_phase(dev, root, kernel_launches):
         emit(phase="lm_launch", nvidia_smi=smi, **got)
 
-    # ---- 18. examples: the port's examples, each in its own process -------
+    # ---- 19. examples: the port's examples, each in its own process -------
     for got in examples_phase(root, kernel_launches):
         emit(phase="examples", nvidia_smi=smi, **got)
 
@@ -2461,7 +2482,11 @@ def main() -> int:
         dict(name="stencil_cuda", route="cuda",
              source="src/repro_torch/kernels/csrc/stencil_tile.cuh",
              replaces="src/repro/kernels/stencil.py:96",
-             launches=k1_main_launches, max_abs_err=k1_err, ms=k1_ms,
+             launches=main_launches["stencil_cuda"]
+             + bench_launches["stencil_cuda"],
+             launches_by_phase=dict(main=main_launches["stencil_cuda"],
+                                    bench=bench_launches["stencil_cuda"]),
+             max_abs_err=k1_err, ms=k1_ms,
              plain_ms=k1_plain_ms, bound_ms=k1_bound, bound_by=k1_by,
              bound_share=k1_bound / k1_ms, library_ms=library_ms,
              serve_launches=serve_launches["stencil_cuda"],
@@ -2469,7 +2494,12 @@ def main() -> int:
         dict(name="stencil_cuda_batched", route="cuda",
              source="src/repro_torch/kernels/csrc/stencil_tile.cuh",
              replaces="src/repro/kernels/pipeline.py:85",
-             launches=k2_main_launches, max_abs_err=k2_err, ms=k2_ms,
+             launches=main_launches["stencil_cuda_batched"]
+             + bench_launches["stencil_cuda_batched"],
+             launches_by_phase=dict(
+                 main=main_launches["stencil_cuda_batched"],
+                 bench=bench_launches["stencil_cuda_batched"]),
+             max_abs_err=k2_err, ms=k2_ms,
              plain_ms=k2_plain_ms, bound_ms=k2_bound, bound_by=k2_by,
              bound_share=k2_bound / k2_ms, library_ms=k2_library_ms,
              serve_launches=serve_launches["stencil_cuda_batched"],
@@ -2483,8 +2513,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--cold-start-child"]:
-        sys.exit(cold_start_child(*sys.argv[2:6]))
     if sys.argv[1:2] == ["--lm-launch-child"]:
         sys.exit(lm_launch_child(*sys.argv[2:4]))
     if sys.argv[1:2] == ["--example-child"]:

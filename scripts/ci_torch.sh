@@ -1,15 +1,11 @@
 #!/usr/bin/env bash
 # CI gate of the PyTorch/CUDA port (src/repro_torch) on the CPU: lint, the
-# stencil lint gate, the port's tests and a smoke run of its quickstart.
+# stencil lint gate, the port's tests, a smoke run of its quickstart and
+# the benchmark smoke gates (benchmarks_torch/).
 # The counterpart of scripts/ci.sh, which gates the JAX package.
 #
 # Usage: scripts/ci_torch.sh [fast]
 #   fast: skip the `slow`-marked subprocess tests.
-#
-# Deferred: scripts/ci.sh's benchmark smoke gates (benchmarks/
-# serving_throughput.py, model_accuracy.py and serving_latency.py with
-# --smoke) have no counterpart yet: the benchmarks folder is the JAX
-# package's and is not ported.
 set -euo pipefail
 cd "$(dirname "$0")/.."
 
@@ -20,8 +16,9 @@ if [[ "${1:-}" == "fast" ]]; then
   MARK=(-m "not slow")
 fi
 
-PORT_FILES=(src/repro_torch examples_torch scripts/lint_stencils_torch.py
-            tests/test_torch_*.py tests/_torch_*.py)
+PORT_FILES=(src/repro_torch examples_torch benchmarks_torch
+            scripts/lint_stencils_torch.py tests/test_torch_*.py
+            tests/_torch_*.py)
 
 echo "== lint: pyflakes (the port) =="
 # hosts without pyflakes fall back to a byte-compile pass, as scripts/ci.sh
@@ -54,5 +51,19 @@ python -m pytest -x -q --durations=15 "${MARK[@]}" tests/test_torch_*.py
 
 echo "== smoke: examples_torch/quickstart.py =="
 python examples_torch/quickstart.py --device cpu
+
+echo "== smoke: benchmark gates (benchmarks_torch, --smoke --device cpu) =="
+# every gate asserted: serving (IR, K2 vs K1, single and mixed geometry,
+# mixed boundary, cold start), the model's rank accuracy, open-loop latency.
+# All three run; a miss in one fails the script after the last.
+failed=()
+for script in serving_throughput model_accuracy serving_latency; do
+  PYTHONPATH="src:." python "benchmarks_torch/$script.py" --smoke --device cpu --check \
+    || failed+=("$script")
+done
+if (( ${#failed[@]} )); then
+  echo "CI FAILED: benchmark gates missed in: ${failed[*]}"
+  exit 1
+fi
 
 echo "CI OK"

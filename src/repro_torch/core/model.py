@@ -335,7 +335,12 @@ def predict_gpu(
         root of the shortfall (measured: 1.2x at 2 blocks, 1.7x at 1).
         Blocks of a streamed spec past a request's real region update more
         (the kernel's head comment); they are not charged;
-      * one kernel launch per round.
+      * the launches: K1 (``buffer_depth=0``) launches once per grid per
+        round, K2 (``buffer_depth >= 2``) once per round for the whole
+        batch (``runtime/batching.py``), so a grid's share of K2's launch
+        is ``1 / batch_tile`` of it.  This is the card's counterpart of
+        the reference amortising K2's pipeline fill over ``batch_tile``
+        grids (``repro.core.model.predict_tpu``).
 
     The terms add: a block waits for its windows before its first stage
     and writes its tile after its last, and on the card the sum tracks
@@ -367,10 +372,12 @@ def predict_gpu(
     memory_term = hbm_bytes / gpu.hbm_bw
     rate = min(1.0, resident_blocks(smem, gpu) / gpu.full_rate_blocks) ** 0.5
     compute_term = updates * gpu.cell_update_s / rate
-    notes = "batch-in-grid" if cfg.buffer_depth >= 2 else ""
+    k2 = cfg.buffer_depth >= 2
+    launch_term = rounds * gpu.launch_s / (max(cfg.batch_tile, 1) if k2 else 1)
+    notes = "batch-in-grid" if k2 else ""
     return Prediction(
         config=cfg,
-        latency=compute_term + memory_term + rounds * gpu.launch_s,
+        latency=compute_term + memory_term + launch_term,
         compute_term=compute_term,
         memory_term=memory_term,
         collective_term=0.0,
@@ -474,7 +481,7 @@ def gpu_candidate_configs(
     Single-device: temporal ``k=1`` for every tile row extent of
     :data:`TILE_ROWS` at every fusion depth the shared memory allows, each
     as K1 (``buffer_depth=0``) and as the batch-in-grid K2
-    (``buffer_depth=2``).  Then, for every ``k > 1`` dividing the pool,
+    (``buffer_depth=2``, ``batch_tile=8`` as in the reference).  Then, for every ``k > 1`` dividing the pool,
     the row-partitioned variants at every fusion depth up to ``it`` (the
     shard path holds no tile, so ``tile_rows`` is 0 and shared memory sets
     no limit), under the reference's guards
@@ -500,7 +507,8 @@ def gpu_candidate_configs(
         for s in _fusion_depths(min(it, s_max)):
             out.append(ParallelismConfig("temporal", k=1, s=s, tile_rows=rows))
             out.append(ParallelismConfig(
-                "temporal", k=1, s=s, tile_rows=rows, buffer_depth=2,
+                "temporal", k=1, s=s, tile_rows=rows,
+                batch_tile=8, buffer_depth=2,
             ))
     n = gpu.num_gpus
     for k in range(2, n + 1):

@@ -15,7 +15,8 @@ eight 9720x1024 f32 grids, over the 50 MB L2).
 
 :func:`stencil_cuda_batched` launches the kernel for CUDA tensors (counted
 on ``stencil_cuda_batched.launches``); CPU tensors run the plain version
-:func:`stencil_torch_pipeline`.  :func:`stencil_run_batched` is the round
+:func:`stencil_torch_pipeline` (counted on
+``stencil_cuda_batched.plain_calls``).  :func:`stencil_run_batched` is the round
 loop, with streamed wrap margins re-imposed between rounds by a
 ``torch.gather`` at grid granularity, outside the kernel.
 """
@@ -55,6 +56,7 @@ def stencil_cuda_batched(
     tensors run :func:`stencil_torch_pipeline`."""
     device = _device_of(spec, arrays)
     if device.type == "cpu":
+        stencil_cuda_batched.plain_calls += 1
         return stencil_torch_pipeline(spec, arrays, s, tile)
     out = launch_tile_kernel(spec, [arrays[n] for n in spec.inputs], s, tile)
     stencil_cuda_batched.launches += 1
@@ -62,6 +64,7 @@ def stencil_cuda_batched(
 
 
 stencil_cuda_batched.launches = 0
+stencil_cuda_batched.plain_calls = 0
 
 
 def stencil_run_batched(

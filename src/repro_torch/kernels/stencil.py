@@ -20,7 +20,8 @@ trapezoid's redundant updates grow with ``h / T`` per axis.
 
 :func:`stencil_cuda` launches the kernel for a CUDA tensor and counts the
 launch on ``stencil_cuda.launches``; for a CPU tensor it runs the plain
-version :func:`stencil_torch_tiled`, which walks the same tiles with the
+version :func:`stencil_torch_tiled` (counted on
+``stencil_cuda.plain_calls``), which walks the same tiles with the
 same per-axis boundary rule through :mod:`repro_torch.kernels.blockops`
 and updates whole windows.
 """
@@ -315,6 +316,7 @@ def stencil_cuda(
     """
     device = _device_of(spec, arrays)
     if device.type == "cpu":
+        stencil_cuda.plain_calls += 1
         return stencil_torch_tiled(spec, arrays, s, tile)
     out = launch_tile_kernel(
         spec, [arrays[n][None] for n in spec.inputs], s, tile
@@ -324,3 +326,4 @@ def stencil_cuda(
 
 
 stencil_cuda.launches = 0
+stencil_cuda.plain_calls = 0

@@ -19,6 +19,7 @@ from repro.core import dsl as ref_dsl
 from repro.core import model as ref_model
 from repro.core import numerics
 from repro.core.platform import DEFAULT_FPGA as REF_FPGA
+from repro.core.platform import DEFAULT_TPU as REF_TPU
 
 from repro_torch.core import dsl as pt_dsl
 from repro_torch.core import model
@@ -26,10 +27,12 @@ from repro_torch.core.autotune import autotune, soda_baseline
 from repro_torch.core.model import ParallelismConfig
 from repro_torch.core.platform import DEFAULT_FPGA, DEFAULT_GPU, H100_PCIE, gpu_platform_for
 from repro_torch.kernels import ops, stencil
+from repro_torch.runtime import DesignCache, ShapeBucketer
 from repro_torch.runtime.batching import (
     DegradedDesignWarning,
     build_batched_runner,
 )
+from repro_torch.serve import StencilServer
 
 
 def _port(ref_spec):
@@ -72,6 +75,55 @@ def test_gpu_platform_rows():
     assert DEFAULT_GPU.l2_bytes == 50 * 2**20
 
 
+F6_KERNELS = ["jacobi2d", "heat3d", "hotspot", "blur_jacobi2d", "sobel2d"]
+
+
+@pytest.mark.parametrize("name", F6_KERNELS)
+def test_one_card_ranks_k2_first_at_paper_sizes(name):
+    """At the paper's sizes the reference's one-chip ranking puts its
+    batched kernel (``buffer_depth=2``) first; so does the port's one-card
+    ranking, which prices K2's launch once per micro-batch."""
+    ref_spec = ref_stencils.get(name)
+    want = ref_model.choose_best(ref_spec, REF_TPU.with_chips(1))[0]
+    got = model.choose_best(_port(ref_spec), DEFAULT_GPU)[0]
+    assert want.config.buffer_depth == 2 and want.config.batch_tile == 8
+    assert got.config.buffer_depth == 2 and got.config.batch_tile == 8
+    assert got.config.variant == "temporal" and got.config.k == 1
+
+
+@pytest.mark.parametrize("name", F6_KERNELS)
+def test_k1_and_k2_no_longer_price_equal(name):
+    """K1 and K2 of the same depth and tile do the same work; K2 pays a
+    grid's share (1/batch_tile) of one launch a round, K1 a whole one."""
+    spec = _port(ref_stencils.get(name))
+    by_cfg = {}
+    for c in model.gpu_candidate_configs(spec, DEFAULT_GPU):
+        by_cfg.setdefault((c.s, c.tile_rows), {})[c.buffer_depth] = (
+            model.predict_gpu(spec, c, DEFAULT_GPU))
+    assert by_cfg
+    for pair in by_cfg.values():
+        k1, k2 = pair[0], pair[2]
+        assert k2.config.batch_tile == 8
+        assert (k1.compute_term, k1.memory_term) == (k2.compute_term,
+                                                     k2.memory_term)
+        saved = k1.rounds * DEFAULT_GPU.launch_s * (1 - 1 / 8)
+        assert k1.latency - k2.latency == pytest.approx(saved, rel=1e-9)
+
+
+def test_bucketed_paper_size_registration_routes_through_k2():
+    """A bucketed server on the CPU, registered at the paper's JACOBI2D
+    size, routes a paper-size request to a K2 bucket design (the route
+    only: the grid is not run)."""
+    spec = _port(ref_stencils.get("jacobi2d", iterations=16))
+    srv = StencilServer(device="cpu", max_batch=4, cache=DesignCache(),
+                        bucketing=ShapeBucketer(ladder=((10240,), (1024, 1088))),
+                        warmup=False)
+    reg = srv.register("jacobi2d", spec)
+    entry = reg.cached.runner_for((9720, 1024), count=0)
+    assert entry.config.buffer_depth == 2
+    assert entry.runner.path == "tile_pipeline"
+
+
 CASES = [
     ("jacobi2d", (20, 13), 5),
     ("hotspot", (17, 21), 4),
@@ -92,7 +144,9 @@ def test_autotune_runner_matches_oracle(name, shape, iters):
     want = test_conformance.numpy_oracle(ref_spec, arrays, iters)
     bound = numerics.tolerance_for(ref_spec, iters, arrays)
     design = autotune(ref_dsl.format_spec(ref_spec), device="cpu")
-    assert design.runner.path == "single_pe"
+    # K2 pays a grid's share of one launch a micro-batch, so on one card
+    # it ranks ahead of K1 at the same depth and tile at every size
+    assert design.runner.path == "tile_pipeline"
     # the certified bound, and no skipped candidate on one device
     assert [d.code for d in design.diagnostics] == ["SASA500"]
     got = design.runner(arrays)

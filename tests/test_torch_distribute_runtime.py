@@ -403,13 +403,14 @@ def test_autotune_on_a_pool_weighs_shards_and_soda_does_not():
 
 
 def test_autotune_builds_on_a_pool():
-    """On a pool the chosen temporal design runs the tile kernel on the
-    pool's first device, as does any temporal config: its stages fuse on
-    one card, not degraded, with no warning."""
+    """On a pool the chosen temporal design runs the tile kernel (K2, the
+    ranker's pick) on the pool's first device, as does any temporal
+    config (K1 here): its stages fuse on one card, not degraded, with no
+    warning."""
     spec_ref = ref_spec("jacobi2d", (2048, 256), 16)
     design = autotune(port(spec_ref), devices=POOL[:4])
     assert design.config.variant == "temporal"
-    assert design.runner.batched.path == "single_pe"
+    assert design.runner.batched.path == "tile_pipeline"
     assert design.runner.batched.n_devices == 1
     x = inputs(port(spec_ref))
     assert_close(design.runner(x), oracle(spec_ref, x, 16), "autotune pool")
@@ -438,8 +439,8 @@ def test_autotune_reports_pool_refusals():
 
 def test_cache_and_server_on_a_pool():
     """The server passes its pool to the cache: the design is ranked for
-    four devices.  On the H100 row the tile kernel wins and serves on the
-    pool's first device; on a platform where the ranker puts a shard
+    four devices.  On the H100 row the batched tile kernel (K2) wins and
+    serves on the pool's first device; on a platform where the ranker puts a shard
     design first (eager operators free, tile-kernel updates slow) it
     serves through the shard runner, each result bitwise the standalone
     runner's and within tolerance of the oracle."""
@@ -451,7 +452,7 @@ def test_cache_and_server_on_a_pool():
     reg = srv.register("j", spec)
     assert any(p.config.k == 4 for p in reg.cached.design.ranking)
     assert (reg.cached.runner.path, reg.cached.runner.n_devices) == (
-        "single_pe", 1)
+        "tile_pipeline", 1)
     shards_first = dataclasses.replace(
         H100_SXM, eager_op_s=0.0, cell_update_s=1e-9).with_gpus(4)
     srv = StencilServer(devices=pool, max_batch=2, cache=DesignCache(),

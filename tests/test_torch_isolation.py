@@ -6,7 +6,9 @@ work sits under ``if __name__ == "__main__"``) must import, and no
 ``repro`` module may have been loaded.  The same holds for the port's
 examples (``examples_torch/*.py``, work under ``main``) and its scripts
 (``scripts/lint_stencils_torch.py``; ``scripts/ci_torch.sh`` runs only
-the port's files).
+the port's files), and for its benchmarks (``benchmarks_torch/*.py``,
+which import neither ``jax`` nor ``repro`` nor the reference's
+``benchmarks``).
 """
 from __future__ import annotations
 
@@ -125,3 +127,49 @@ def test_examples_and_scripts_never_name_jax_or_repro():
         code = line.split("#", 1)[0]
         assert "repro." not in code and "-m repro " not in code, line
         assert "examples/" not in code and "benchmarks/" not in code, line
+
+
+BENCH_FILES = sorted((ROOT / "benchmarks_torch").glob("*.py"))
+
+BENCH_SCRIPT = r"""
+import importlib, json, sys
+sys.modules["jax"] = None
+sys.modules["benchmarks"] = None
+for name in sys.argv[1:]:
+    importlib.import_module("benchmarks_torch." + name)
+loaded = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro."))
+jax = sorted(m for m in sys.modules if (m == "jax" or m.startswith("jax."))
+             and sys.modules[m] is not None)
+print(json.dumps({"repro": loaded, "jax": jax}))
+"""
+
+
+def test_benchmarks_import_neither_jax_nor_repro_nor_benchmarks():
+    """Every module of ``benchmarks_torch/`` imports with JAX and the
+    reference's ``benchmarks`` blocked, and loads no ``repro`` module."""
+    assert {p.stem for p in BENCH_FILES} == {
+        "common", "run", "intensity", "single_pe", "best_config",
+        "speedup_vs_soda", "parallelism_sweep", "lm_roofline",
+        "serving_throughput", "cold_start", "model_accuracy",
+        "serving_latency"}
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src"), str(ROOT)]))
+    proc = subprocess.run(
+        [sys.executable, "-c", BENCH_SCRIPT, *(p.stem for p in BENCH_FILES)],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert report == {"repro": [], "jax": []}
+
+
+def test_benchmarks_never_name_jax_repro_or_benchmarks():
+    """The import lines of ``benchmarks_torch/`` name the port only (a
+    lazy import inside a function would escape the subprocess check)."""
+    for path in BENCH_FILES:
+        for line in path.read_text().splitlines():
+            code = line.split("#", 1)[0].strip()
+            if code.startswith(("import ", "from ")):
+                mod = code.split()[1]
+                assert not mod.startswith(("jax", "repro.")), line
+                assert mod not in ("repro", "benchmarks"), line
+                assert not mod.startswith("benchmarks."), line
