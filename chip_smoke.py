@@ -6,7 +6,7 @@ Run from the root of a checkout, on a machine with one CUDA card::
 
 It builds the CUDA tile kernels from ``src/repro_torch/kernels/csrc`` into
 ``build/repro_torch_kernels/`` (one ``nvcc`` per kernel, all at once), then
-runs nineteen phases, each printing JSON lines (each with ``t_s``, the
+runs twenty phases, each printing JSON lines (each with ``t_s``, the
 seconds since the script started, so the time of a phase is the gap
 between its lines and the previous phase's):
 
@@ -151,7 +151,9 @@ between its lines and the previous phase's):
                ``reduced``).  Gate (b) runs one pattern group deep (3
                layers for recurrentgemma, 2 for the others), with the
                family's bf16 bounds (``LM_CPU_TOL``) and, for MoE, the
-               tokens routed differently on the card and on the CPU;
+               tokens routed differently on the card and on the CPU in
+               float32 (qwen's bf16 has no bound, so its CPU side does
+               not run: finite logits and the cache dtype only);
                gate (a) runs MoE prefill at capacity ``n_experts /
                top_k``, where no token can drop.  For MoE the line also
                gives the served prefill's dropped share at the config's
@@ -170,8 +172,8 @@ between its lines and the previous phase's):
                and a 2 x 64 batch, float32 within ``LM_TRAIN_TOL`` (with
                the ``tf32`` fault's readings printed and caught), bf16
                gated per config where ``LM_TRAIN_TOL`` has bounds; (b) on
-               granite at that depth, 6 straight steps against a run
-               crashed at step 3 after its checkpoint (under
+               granite at that depth, 4 straight steps against a run
+               crashed at step 2 after its checkpoint (under
                ``build/lm_train_ckpt``, deleted after) and resumed, params
                and losses within 1e-6 (the reference's contract), bitwise
                equality printed; (c) at full depth the last loss is below
@@ -187,8 +189,9 @@ between its lines and the previous phase's):
                --arch granite_3_2b --steps 4 --batch 8 --seq 512`` at full
                width and depth, its ``done:`` losses and step ms; (2) the
                sharded ``Trainer`` on a 1x1 NCCL mesh (a world of one over
-               a localhost store) training granite-3-2b at full width and
-               depth for 3 float32 steps, within ``LM_TRAIN_TOL``'s
+               a localhost store) training granite-3-2b at full width,
+               one pattern group deep (2 layers), for 3 float32 steps,
+               within ``LM_TRAIN_TOL``'s
                float32 bounds of the unsharded ``Trainer``: the first
                step's gradients, the losses, the parameters after the
                steps (bitwise equality printed); (3) qwen2-moe-a2.7b's prefill through
@@ -196,13 +199,35 @@ between its lines and the previous phase's):
                group deep, float32 logits within ``LM_CPU_TOL`` of the
                dense dispatch; (4) the dry-run cells ``LM_LAUNCH_CELLS`` on
                torch's ``fake`` backend (256 and 512 ranks) in a child
-               process with no card in view, started first so it runs
-               while the card trains: per-rank peak memory against the
-               card's, and the compute, memory and collective terms at the
-               H100's numbers; (5) ``analyze_step`` of (1)'s step: the
-               counted FLOPs beside the analytic bound and the compute
-               term's share of the measured step.  Any failure fails the
+               process with no card in view, started before phase
+               ``lm_train`` so it runs while the card trains: per-rank
+               peak memory against the card's, and the compute, memory
+               and collective terms at the H100's numbers; (5)
+               ``analyze_step`` of (1)'s step: the counted FLOPs beside
+               the analytic bound and the compute term's share of the
+               measured step.  Any failure fails the
                run; the sharded path launches no stencil kernel;
+18b. conformance the reference's conformance cases without JAX
+               (``tests/_torch_conformance_cases.py``): its random DSL
+               specs for seeds 0, 5, ..., 195 and its 8-seed regression
+               corpus (48 specs: 3-argument min/max, abs, negation,
+               division by constants, CSE's let-bindings, a second
+               iterated input, a local stage read at radius-2 offsets,
+               3-D, grids of 4-9 cells a side), each lowered and run on
+               its own grid and on a grid with interior blocks (256x192,
+               48x40x72): K1 at s=2 on a 4-cell tile and on the default
+               tile, each within 2e-4 x max(1, max|out|) of its plain
+               version on the card; K2 over a batch of 3 bitwise equal to
+               K1 per entry on both tiles; the bucketed runner (K2 on the
+               masked spec with its mask, halo-index maps or wrap maps).
+               Every result within the certified bound
+               (``numerics.tolerance_for``) of the numpy oracle.  Its 96
+               libraries build from the start of phase ``lm_train`` on,
+               in a child process at the lowest CPU priority, on the
+               cores the card-bound training leaves idle.  One line:
+               kernels built and seconds (the child's and the phase's
+               own), launches, the worst divergence/bound ratio per
+               boundary kind and per executor;
  19. examples  each of the port's six examples (``examples_torch/``,
                ``EXAMPLES``) on the card with its default device, all
                six at once, each in a process of its own
@@ -222,8 +247,9 @@ between its lines and the previous phase's):
                chose).
 
 Then one JSON line lists every kernel with its launches (from phases
-``main`` and ``bench``, each run with the counts set to 0 just before it
-and read just after; ``launches_by_phase`` gives both), error and times,
+``main``, ``bench`` and ``conformance``, each run with the counts set to
+0 just before it and read just after; ``launches_by_phase`` gives each),
+error and times,
 and the last line is ``{"ok": true, "device": {...}}``.  Any failure
 raises, so the exit code is non-zero and no result line is printed.
 Imports nothing of JAX and nothing of the JAX package ``repro``.
@@ -278,6 +304,9 @@ SERVE_MODES = ["zero", "constant 25.0", "replicate", "periodic"]
 SERVE_LADDER = ((10240,), (1024, 1088))
 SERVE_SHAPES, SERVE_REPEATS = 5, 2
 STREAMED_BUCKET_PAD = 24   # small streamed specs: bucket = grid + this
+# phase conformance: tests/_torch_conformance_cases.py's CARD_SEEDS through
+# K1 (two tiles), K2 and the bucketed runner at the reference's s = 2
+CONF_S, CONF_BATCH, CONF_BUCKET_ROWS = 2, 3, 8
 BF16_DSL = """
 kernel: J2D_BF16
 iteration: 2
@@ -338,7 +367,13 @@ H100_BF16_FLOPS = 989e12   # NVIDIA data sheet, dense
 # recurrentgemma-2b gradient rms <= 1.58e-2 (>= 2.97e-2), its loss
 # readings overlap (sound up to 9.0e-6, no_upcast from 3.4e-6).
 LM_TRAIN_ARCHS = ("granite_3_2b", "recurrentgemma_2b")
+# gate (c) keeps 6 steps: recurrentgemma-2b's loss first falls below step
+# 0's at step 4 (12.4557, 12.4597, 12.4611, 12.4586, 12.4561, 12.4518 on
+# an H100, PERF.md); gate (b) at its 2-layer depth needs only a crash
+# between two checkpoints, so it runs LM_TRAIN_RESUME_STEPS, crashing at
+# LM_TRAIN_CRASH_AT
 LM_TRAIN_TRAFFIC = dict(steps=6, batch=8, seq=512, lr=3e-4, warmup=2)
+LM_TRAIN_RESUME_STEPS, LM_TRAIN_CRASH_AT = 4, 2
 LM_TRAIN_GATE_BATCH = (2, 64)
 LM_TRAIN_TOL = {
     "float32": dict(loss_rel=1e-5, grad_max_rel=1e-4),
@@ -352,9 +387,10 @@ LM_TRAIN_TOL = {
 LM_TRAIN_HEADROOM_BYTES = 20e9
 # phase lm_launch: the sharded layer.  (1) the train CLI at full width and
 # depth; (2) the sharded Trainer on a 1x1 NCCL mesh against the unsharded
-# one in float32, within lm_train's gate (a) float32 bounds (loss_rel; the
-# first step's gradients' grad_max_rel, which alone sees a wrong gradient
-# scale, AdamW's update being blind to one; and grad_max_rel read as the
+# one in float32, one pattern group deep, within lm_train's gate (a)
+# float32 bounds (loss_rel; the first step's gradients' grad_max_rel,
+# which alone sees a wrong gradient scale, AdamW's update being blind to
+# one; and grad_max_rel read as the
 # parameters' largest difference after the steps
 # over the tree's largest |parameter|); (3) qwen2-moe-a2.7b's prefill
 # through the expert-parallel dispatch on that mesh against the dense one
@@ -511,23 +547,31 @@ def cut_params(params, n_layers: int):
     return L.ParamTree(tree)
 
 
-def lm_vs_cpu(dev, cfg, params, tokens, steps) -> dict:
+def lm_vs_cpu(dev, cfg, params, tokens, steps, with_cpu: bool = True) -> dict:
     """``cfg``'s model on ``dev`` against the port's CPU path on a copy of
     ``params``: :func:`logit_errs`, whether the card's logits are finite,
     the card's cache dtype, and for MoE the tokens routed to other experts
-    on the card than on the CPU."""
+    on the card than on the CPU.  Without ``with_cpu`` (no bound to hold
+    the readings to) the CPU path does not run: finiteness and the cache
+    dtype only."""
     import torch
 
     from repro_torch.models.model_zoo import build_model
 
+    t0 = time.perf_counter()
     with MoeProbe() as on_card:
         card = lm_logits(build_model(cfg, device=dev), params, tokens, steps)
+    out = dict(finite=bool(torch.isfinite(card[0]).all()
+                           and torch.isfinite(card[1]).all()),
+               cache_dtype=card[2], card_s=time.perf_counter() - t0)
+    if not with_cpu:
+        return dict(out, cpu="not run: no bound")
+    t1 = time.perf_counter()
     with MoeProbe() as on_cpu:
         cpu = lm_logits(build_model(cfg, device="cpu"), cpu_copy(params),
                         tokens, steps)
-    out = dict(finite=bool(torch.isfinite(card[0]).all()
-                           and torch.isfinite(card[1]).all()),
-               cache_dtype=card[2], **logit_errs(card[:2], cpu[:2]))
+    out.update(logit_errs(card[:2], cpu[:2]),
+               cpu_s=time.perf_counter() - t1)
     if on_card.calls:
         out["routing_flips"] = on_card.flips(on_cpu)
         out["routed_tokens"] = sum(c["experts"].shape[0]
@@ -626,6 +670,9 @@ def lm_serve(dev, cfg, traffic: dict, hbm_bw: float, kernel_launches) -> dict:
         top = torch.topk(logits.float(), 2, dim=-1).values
         return float((top[..., 0] - top[..., 1]).min())
 
+    gate_s = {}
+    t_gate = time.perf_counter()
+
     # (a) decode equals repeated prefill, float32 activations, full size; an
     # MoE prefill with capacity n_experts/top_k drops no token (an expert
     # can take every token), as the dropless decode does
@@ -649,6 +696,9 @@ def lm_serve(dev, cfg, traffic: dict, hbm_bw: float, kernel_launches) -> dict:
                   f"prefill {seq[len(prompt):]} (top-2 margins {margins}, "
                   f"prefill dropped share {dropped_a})")
 
+    gate_s["a"] = time.perf_counter() - t_gate
+    t_gate = time.perf_counter()
+
     # (b) the card against the port's CPU path on the same weights, one
     # pattern group deep, in float32 and in the config's dtype
     depth_b = gate_layers(cfg)
@@ -656,15 +706,17 @@ def lm_serve(dev, cfg, traffic: dict, hbm_bw: float, kernel_launches) -> dict:
     tokens = rng.integers(0, cfg.vocab, (2, 64)).astype(np.int32)
     gate_b = {}
     for dt in dict.fromkeys(("float32", cfg.act_dtype)):
+        tol = lm_cpu_tol(name, dt)
         got_b = lm_vs_cpu(dev, dataclasses.replace(cfg, n_layers=depth_b,
                                                   act_dtype=dt),
-                          cut, tokens, LM_DECODE_STEPS)
-        tol = lm_cpu_tol(name, dt)
+                          cut, tokens, LM_DECODE_STEPS, with_cpu=bool(tol))
         check(got_b["finite"] and got_b["cache_dtype"] == dt
               and all(got_b[k] <= tol[k] for k in tol),
               f"{name} (b) {dt}: card vs CPU {got_b}, bounds {tol}")
         gate_b[dt] = dict(got_b, tol=tol or "none (finite, cache dtype)")
     del cut
+    gate_s["b"] = time.perf_counter() - t_gate
+    t_gate = time.perf_counter()
 
     # (c) the traffic in the config's dtype: two runs, bitwise equal
     lens = rng.integers(traffic["prompt_min"], traffic["prompt_max"] + 1,
@@ -717,6 +769,7 @@ def lm_serve(dev, cfg, traffic: dict, hbm_bw: float, kernel_launches) -> dict:
     check(bitwise and in_range and finite,
           f"{name} (c): bitwise {bitwise}, tokens in range {in_range}, "
           f"logits finite {finite}")
+    gate_s["c"] = time.perf_counter() - t_gate
     window_ms = a.elapsed_time(b)
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -758,6 +811,7 @@ def lm_serve(dev, cfg, traffic: dict, hbm_bw: float, kernel_launches) -> dict:
                     decode_steps=LM_DECODE_STEPS, **gate_b),
         gate_c=dict(bitwise=bitwise, in_range=in_range, finite=finite,
                     min_top2_margin=top2_margin(logits)),
+        gate_s=gate_s,
         stencil_kernel_launches=kernel_launches() - launches_before,
     )
     if cfg.n_experts:
@@ -910,6 +964,8 @@ def lm_train(dev, cfg, hbm_bw: float, build_dir: Path, kernel_launches,
 
     name = cfg.name
     launches_before = kernel_launches()
+    gate_s = {}
+    t_gate = time.perf_counter()
 
     # (a) the card against the CPU on the same weights and batch, one
     # pattern group deep: float32 gated, with the tf32 fault's readings
@@ -942,6 +998,8 @@ def lm_train(dev, cfg, hbm_bw: float, build_dir: Path, kernel_launches,
     del cut, cut_cpu, model
     gc.collect()
     torch.cuda.empty_cache()
+    gate_s["a"] = time.perf_counter() - t_gate
+    t_gate = time.perf_counter()
 
     traffic = dict(LM_TRAIN_TRAFFIC, seed=LM_SEED, log_every=10 ** 9)
 
@@ -949,38 +1007,41 @@ def lm_train(dev, cfg, hbm_bw: float, build_dir: Path, kernel_launches,
         return {k: p.detach().cpu() for k, p in
                 state["params"].named_parameters()}
 
-    # (b) crash and resume at gate (a)'s depth: 6 straight steps (twice:
-    # are two runs bitwise?), then a crash at step 3 after the checkpoint
-    # of step 3, and a resume to step 6; the checkpoints live under
-    # build_dir and are deleted after
+    # (b) crash and resume at gate (a)'s depth: LM_TRAIN_RESUME_STEPS
+    # straight steps (twice: are two runs bitwise?), then a crash at step
+    # LM_TRAIN_CRASH_AT after its checkpoint, and a resume to the end; the
+    # checkpoints live under build_dir and are deleted after
     gate_b = None
     if crash_resume:
         model = build_model(cut_cfg, device=dev)
+        short = dict(traffic, steps=LM_TRAIN_RESUME_STEPS)
+        crash = LM_TRAIN_CRASH_AT
         straight = []
         for _ in range(2):
-            state, losses = Trainer(model, TrainConfig(**traffic)).run()
+            state, losses = Trainer(model, TrainConfig(**short)).run()
             straight.append((params_cpu(state), losses))
             del state
         shutil.rmtree(build_dir, ignore_errors=True)
         try:
             crashy = Trainer(model, TrainConfig(
-                **traffic, ckpt_dir=str(build_dir), ckpt_every=3,
-                fail_at_step=3))
+                **short, ckpt_dir=str(build_dir), ckpt_every=crash,
+                fail_at_step=crash))
             try:
                 crashy.run()
                 crashed = False
             except RuntimeError as e:
-                crashed = "injected failure at step 3" in str(e)
-            check(crashed and latest_step(str(build_dir)) == 3,
-                  f"{name} (b): no crash at step 3 after its checkpoint")
+                crashed = f"injected failure at step {crash}" in str(e)
+            check(crashed and latest_step(str(build_dir)) == crash,
+                  f"{name} (b): no crash at step {crash} after its "
+                  "checkpoint")
             state, losses = Trainer(model, TrainConfig(
-                **traffic, ckpt_dir=str(build_dir), ckpt_every=3)).run()
+                **short, ckpt_dir=str(build_dir), ckpt_every=crash)).run()
             resumed = params_cpu(state)
             want, want_losses = straight[0]
             close = all(torch.allclose(resumed[k], w, rtol=1e-6, atol=1e-6)
                         for k, w in want.items()) and np.allclose(
-                losses, want_losses[3:], rtol=1e-6, atol=1e-6)
-            check(close and len(losses) == 3,
+                losses, want_losses[crash:], rtol=1e-6, atol=1e-6)
+            check(close and len(losses) == short["steps"] - crash,
                   f"{name} (b): resumed losses {losses}, straight "
                   f"{want_losses}")
             # one save and restore of the whole state, timed
@@ -996,17 +1057,20 @@ def lm_train(dev, cfg, hbm_bw: float, build_dir: Path, kernel_launches,
         finally:
             shutil.rmtree(build_dir, ignore_errors=True)
         gate_b = dict(
-            layers=cut_cfg.n_layers, steps=traffic["steps"], crash_at=3,
+            layers=cut_cfg.n_layers, steps=short["steps"], crash_at=crash,
             losses_straight=want_losses, losses_resumed=losses,
             resumed_bitwise=all(torch.equal(resumed[k], w)
                                 for k, w in want.items())
-            and losses == want_losses[3:],
+            and losses == want_losses[crash:],
             straight_repeat_bitwise=straight[0][1] == straight[1][1] and all(
                 torch.equal(straight[1][0][k], w) for k, w in want.items()),
             checkpoint_bytes=nbytes, save_s=save_s, restore_s=restore_s)
         del model, state, straight, resumed
         gc.collect()
         torch.cuda.empty_cache()
+
+    gate_s["b"] = time.perf_counter() - t_gate
+    t_gate = time.perf_counter()
 
     # (c) the traffic at the depth that fits: the loss falls
     depth = lm_depth(cfg, dev, 16, LM_TRAIN_HEADROOM_BYTES)
@@ -1053,6 +1117,9 @@ def lm_train(dev, cfg, hbm_bw: float, build_dir: Path, kernel_launches,
     with torch.no_grad():      # step 0's batch again, after the run
         first_batch_after = float(model.loss(state["params"],
                                              tr.data.batch_at(0)))
+
+    gate_s["c"] = time.perf_counter() - t_gate
+    t_gate = time.perf_counter()
 
     # one more step with the optimizer's update timed alone, then one
     # under the profiler: its launches and the card's busy share
@@ -1104,6 +1171,7 @@ def lm_train(dev, cfg, hbm_bw: float, build_dir: Path, kernel_launches,
     step_bound_ms = step_ops / H100_BF16_FLOPS * 1e3
     opt_bound_ms = 28 * n_params / hbm_bw * 1e3
     step_ms = statistics.median(step_s[1:]) * 1e3
+    gate_s["profile"] = time.perf_counter() - t_gate
     check(kernel_launches() == launches_before,
           f"{name}: the training path launched a stencil kernel")
     out = dict(
@@ -1125,6 +1193,7 @@ def lm_train(dev, cfg, hbm_bw: float, build_dir: Path, kernel_launches,
         gate_b=gate_b if gate_b is not None else "not run (granite only)",
         gate_c=dict(first=losses[0], last=losses[-1],
                     first_batch_after=first_batch_after),
+        gate_s=gate_s,
         stencil_kernel_launches=kernel_launches() - launches_before,
     )
     del model, tr, state, params
@@ -1218,9 +1287,28 @@ def _free_port() -> int:
         return sock.getsockname()[1]
 
 
-def lm_launch_phase(dev, root: Path, kernel_launches):
+def start_lm_launch_child(root: Path, card_bytes: int):
+    """Start phase ``lm_launch``'s CPU child (:func:`lm_launch_child`, no
+    card in view); returns ``(process, its JSON path, start time)``."""
+    import os
+
+    child_json = root / "build" / "lm_launch_child.json"
+    child_json.unlink(missing_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(root / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.Popen(
+        [sys.executable, str(root / "chip_smoke.py"), "--lm-launch-child",
+         str(child_json), str(card_bytes)], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return proc, child_json, time.perf_counter()
+
+
+def lm_launch_phase(dev, root: Path, kernel_launches, child=None):
     """Phase ``lm_launch`` (see the module docstring): yields one result
-    per part; the dry-run child runs on the host while the card trains."""
+    per part; the dry-run child runs on the host while the card trains.
+    ``child`` is :func:`start_lm_launch_child`'s result when the caller
+    started it earlier (``main`` does, before phase ``lm_train``); else
+    the phase starts it."""
     import dataclasses
     import gc
     import os
@@ -1245,15 +1333,8 @@ def lm_launch_phase(dev, root: Path, kernel_launches):
     gc.collect()
     torch.cuda.empty_cache()
     held_bytes = torch.cuda.memory_reserved(dev)
-    child_json = root / "build" / "lm_launch_child.json"
-    child_json.unlink(missing_ok=True)
-    env = dict(os.environ, PYTHONPATH=str(root / "src"),
-               CUDA_VISIBLE_DEVICES="")
-    t_child = time.perf_counter()
-    child = subprocess.Popen(
-        [sys.executable, str(root / "chip_smoke.py"), "--lm-launch-child",
-         str(child_json), str(card_bytes)], env=env,
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    child, child_json, t_child = child or start_lm_launch_child(
+        root, card_bytes)
     try:
         # (1) the train CLI, at full width and depth
         t0 = time.perf_counter()
@@ -1287,7 +1368,10 @@ def lm_launch_phase(dev, root: Path, kernel_launches):
                                 f"{_free_port()}", world_size=1, rank=0)
         try:
             mesh = meshlib.make_host_mesh(1, 1)
-            cfg = dataclasses.replace(arch_configs.get(LM_ARCH),
+            # one pattern group deep, full width: the depth gate (a)'s
+            # float32 bounds were read at (the train CLI runs full depth)
+            full = arch_configs.get(LM_ARCH)
+            cfg = dataclasses.replace(full, n_layers=gate_layers(full),
                                       act_dtype="float32")
             traffic = dict(LM_LAUNCH_MESH_TRAFFIC, seed=LM_SEED,
                            log_every=10 ** 9)
@@ -1340,6 +1424,8 @@ def lm_launch_phase(dev, root: Path, kernel_launches):
                   f"{param_max_rel}")
             yield dict(part="sharded_trainer", mesh="1x1 (data, model), "
                        "nccl", arch=cfg.name, layers=cfg.n_layers,
+                       reduced=dict(n_layers=[full.n_layers, cfg.n_layers],
+                                    why="one pattern group: gate (a)'s depth"),
                        act_dtype="float32", traffic=traffic,
                        losses_sharded=sharded_losses, losses=losses,
                        loss_rel=loss_rel,
@@ -1627,6 +1713,178 @@ def bench_phase(root: Path, dev):
                measured=[r for r in rows if "measured" in r],
                elapsed_us={r.split("/")[0]: float(r.split(",")[1])
                            for r in rows if "/elapsed," in r})
+
+
+def conformance_cases(root: Path):
+    """Phase ``conformance``'s runs, ``(seed, grid, spec, lowered spec,
+    arrays, iterations, bucket, wrap rounds)`` for every case of
+    ``CARD_SEEDS`` (``tests/_torch_conformance_cases.py``) on its own grid
+    and on the large one, and the specs whose kernels they launch (the
+    lowered specs and their bucket specs; the large grids share them)."""
+    if str(root / "tests") not in sys.path:
+        sys.path.insert(0, str(root / "tests"))
+    import _torch_conformance_cases as cases
+    from repro_torch.core.ir import lower
+    from repro_torch.runtime import (
+        ShapeBucketer,
+        bucket_plan,
+        padded_request_shape,
+    )
+
+    runs, kernels = [], []
+    for seed in cases.CARD_SEEDS:
+        for grid, (spec, arrays, iters) in (
+                ("small", cases.random_spec(seed)),
+                ("large", cases.large_case(seed))):
+            wrap = CONF_S if spec.boundary.kind == "periodic" else None
+            bucket = ShapeBucketer().bucket_for(
+                padded_request_shape(spec, spec.shape, iters, wrap))
+            low = lower(spec).spec
+            runs.append((seed, grid, spec, low, arrays, iters, bucket, wrap))
+            kernels += [low, bucket_plan(low, bucket, iterations=iters,
+                                         wrap_rounds=wrap).mspec]
+    return runs, kernels
+
+
+def conformance_build_child(out_json: str) -> int:
+    """Phase ``conformance``'s builds, in a process of their own: every
+    library the phase launches, through ``cuda_build.build_many``; writes
+    the libraries, compiles and seconds to ``out_json``."""
+    root = Path(__file__).resolve().parent
+    sys.path.insert(0, str(root / "src"))
+    from repro_torch.kernels import cuda_build
+
+    _, kernels = conformance_cases(root)
+    t0 = time.perf_counter()
+    cuda_build.build_many(kernels)
+    Path(out_json).write_text(json.dumps(dict(
+        kernels=len({cuda_build.kernel_key(sp) for sp in kernels}),
+        compiles=cuda_build.build_many.compiles,
+        build_s=time.perf_counter() - t0)))
+    return 0
+
+
+def start_conformance_build(root: Path):
+    """Start :func:`conformance_build_child` at the lowest CPU priority
+    (``nice -n 19``): it compiles on the cores the phases running
+    meanwhile leave idle.  Returns ``(process, its JSON path)``."""
+    import atexit
+    import os
+    import signal
+
+    out = root / "build" / "conformance_build.json"
+    out.unlink(missing_ok=True)
+    proc = subprocess.Popen(
+        ["nice", "-n", "19", sys.executable, str(root / "chip_smoke.py"),
+         "--conformance-build-child", str(out)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        start_new_session=True)
+
+    def stop():     # the child and its nvcc, if the script ends first
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+
+    atexit.register(stop)
+    return proc, out
+
+
+def conformance_phase(root: Path, dev, builder=None) -> dict:
+    """Phase ``conformance`` (see the module docstring): its one line.
+
+    Every run of :func:`conformance_cases`, lowered: K1 at s = 2 on a
+    4-cell tile and on the default tile, each run against the kernel's
+    plain version on the same device; K2 over a batch of 3, bitwise equal
+    to K1 per entry on both tiles; the bucketed runner (K2 on the bucket
+    spec, periodic through its wrap maps).  Every result is held within
+    the certified bound (``numerics.tolerance_for``) of the numpy oracle.
+    On a CUDA device the kernels are built first, by ``builder``
+    (:func:`start_conformance_build`'s result) when given, whose end the
+    phase awaits, and what is still missing here, at most
+    ``2 * os.cpu_count()`` ``nvcc`` at once; on the CPU the same calls run
+    the plain versions (a rehearsal).  Any miss raises."""
+    import numpy as np
+    import torch
+
+    t_phase = time.perf_counter()
+    runs, kernels = conformance_cases(root)
+    import _torch_conformance_cases as cases
+    from repro_torch.core.model import ParallelismConfig
+    from repro_torch.core.numerics import tolerance_for
+    from repro_torch.kernels import cuda_build, ops, pipeline, stencil
+    from repro_torch.runtime import build_bucket_runner
+
+    cfg = ParallelismConfig("temporal", k=1, s=CONF_S,
+                            tile_rows=CONF_BUCKET_ROWS, buffer_depth=2)
+    keys = {cuda_build.kernel_key(sp) for sp in kernels}
+    background = None
+    if builder is not None:
+        proc, out = builder
+        _, err = proc.communicate(timeout=900)
+        check(proc.returncode == 0,
+              f"conformance: the build child failed: {err[-3000:]}")
+        background = json.loads(out.read_text())
+    compiles = cuda_build.build_many.compiles
+    t0 = time.perf_counter()
+    if dev.type == "cuda":
+        cuda_build.build_many(kernels)
+    build_s = time.perf_counter() - t0
+    compiles = cuda_build.build_many.compiles - compiles
+
+    worst_kind: dict[str, float] = {}
+    worst_exec: dict[str, float] = {}
+    k1_plain = 0.0
+    for seed, grid, spec, low, arrays, iters, bucket, wrap in runs:
+        label = (f"seed {seed} {grid} {spec.boundary.kind} {spec.shape} "
+                 f"it={iters}")
+        want = cases.numpy_oracle(spec, arrays, iters)
+        check(bool(np.isfinite(want).all()), f"{label}: oracle not finite")
+        bound = tolerance_for(spec, iters, arrays)
+        scale = max(1.0, float(np.abs(want).max()))
+
+        def gate(name, got):
+            got = got.float().cpu().numpy() if torch.is_tensor(got) else got
+            diff = float(np.abs(got - want).max())
+            check(diff <= bound, f"{label} [{name}]: {diff:.3g} > certified "
+                  f"bound {bound:.3g}")
+            kind = spec.boundary.kind
+            worst_kind[kind] = max(worst_kind.get(kind, 0.0), diff / bound)
+            worst_exec[name] = max(worst_exec.get(name, 0.0), diff / bound)
+
+        t = ops.to_device(low, cases.batch_of(seed, arrays, CONF_BATCH), dev)
+        entries = [{n: a[b] for n, a in t.items()} for b in range(CONF_BATCH)]
+        for tname, tile in (("tile4", (4,) * spec.ndim), ("default", None)):
+            k1 = [ops.stencil_run(low, e, iters, s=CONF_S, tile=tile,
+                                  backend="cuda", device=dev) for e in entries]
+            plain = ops.run_rounds(low, entries[0], iters, CONF_S,
+                                   stencil.stencil_torch_tiled, tile)
+            err = float((k1[0] - plain).abs().max()) / scale
+            check(err <= TOL[low.dtype],
+                  f"{label} [k1 {tname}]: kernel vs plain {err} x {scale}")
+            k1_plain = max(k1_plain, err)
+            gate(f"k1_{tname}", k1[0])
+            k2 = pipeline.stencil_run_batched(low, t, iters, s=CONF_S,
+                                              tile=tile)
+            check(all(torch.equal(k2[b], k1[b]) for b in range(CONF_BATCH)),
+                  f"{label} [k2 {tname}]: K2 differs from K1 per entry")
+        run = build_bucket_runner(low, bucket, cfg, iterations=iters,
+                                  device=dev, wrap_rounds=wrap)
+        check(run.path == "tile_pipeline", f"{label}: bucketed {run.path}")
+        gate("bucketed_wrap" if wrap else "bucketed",
+             run({n: a.cpu().numpy() for n, a in t.items()})[0])
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return dict(specs=len(cases.CARD_SEEDS), runs=len(runs),
+                grids=dict(small="4-9 cells a side (the seed's)",
+                           large_2d=list(cases.LARGE_2D),
+                           large_3d=list(cases.LARGE_3D)),
+                s=CONF_S, batch=CONF_BATCH, kernels=len(keys),
+                compiles=compiles, build_s=build_s,
+                background_build=background or "none",
+                k1_vs_plain_max_rel=k1_plain, tol=TOL["float32"],
+                k2_bitwise=True, worst_ratio_by_kind=worst_kind,
+                worst_ratio_by_executor=worst_exec,
+                phase_s=time.perf_counter() - t_phase)
 
 
 def main() -> int:
@@ -2464,15 +2722,37 @@ def main() -> int:
     for got in lm_mixers(dev, LM_TRAFFIC, gpu.hbm_bw, kernel_launches):
         emit(phase="lm_mixers", nvidia_smi=smi, **got)
 
-    # ---- 17. lm_train: the port's Trainer at full width ------------------
-    for got in lm_train_phase(dev, gpu.hbm_bw,
-                              root / "build" / "lm_train_ckpt",
-                              kernel_launches):
-        emit(phase="lm_train", nvidia_smi=smi, **got)
+    # phase lm_launch's dry-run child and phase conformance's builds (at
+    # the lowest CPU priority) need no card: they start here, so they run
+    # on the host while lm_train and lm_launch keep the card busy
+    conf_builder = start_conformance_build(root)
+    launch_child = start_lm_launch_child(
+        root, torch.cuda.get_device_properties(dev).total_memory)
+    try:
+        # ---- 17. lm_train: the port's Trainer at full width --------------
+        for got in lm_train_phase(dev, gpu.hbm_bw,
+                                  root / "build" / "lm_train_ckpt",
+                                  kernel_launches):
+            emit(phase="lm_train", nvidia_smi=smi, **got)
 
-    # ---- 18. lm_launch: the sharded layer ---------------------------------
-    for got in lm_launch_phase(dev, root, kernel_launches):
-        emit(phase="lm_launch", nvidia_smi=smi, **got)
+        # ---- 18. lm_launch: the sharded layer -----------------------------
+        for got in lm_launch_phase(dev, root, kernel_launches, launch_child):
+            emit(phase="lm_launch", nvidia_smi=smi, **got)
+    finally:
+        if launch_child[0].poll() is None:
+            launch_child[0].kill()
+            launch_child[0].wait()
+
+    # ---- 18b. conformance: the reference's random specs on the card -----
+    stencil.stencil_cuda.launches = 0
+    pipeline.stencil_cuda_batched.launches = 0
+    got = conformance_phase(root, dev, conf_builder)
+    conf_launches = {"stencil_cuda": stencil.stencil_cuda.launches,
+                     "stencil_cuda_batched":
+                         pipeline.stencil_cuda_batched.launches}
+    check(all(v > 0 for v in conf_launches.values()),
+          f"conformance: a tile kernel never launched: {conf_launches}")
+    emit(phase="conformance", nvidia_smi=smi, launches=conf_launches, **got)
 
     # ---- 19. examples: the port's examples, each in its own process -------
     for got in examples_phase(root, kernel_launches):
@@ -2483,9 +2763,12 @@ def main() -> int:
              source="src/repro_torch/kernels/csrc/stencil_tile.cuh",
              replaces="src/repro/kernels/stencil.py:96",
              launches=main_launches["stencil_cuda"]
-             + bench_launches["stencil_cuda"],
-             launches_by_phase=dict(main=main_launches["stencil_cuda"],
-                                    bench=bench_launches["stencil_cuda"]),
+             + bench_launches["stencil_cuda"]
+             + conf_launches["stencil_cuda"],
+             launches_by_phase=dict(
+                 main=main_launches["stencil_cuda"],
+                 bench=bench_launches["stencil_cuda"],
+                 conformance=conf_launches["stencil_cuda"]),
              max_abs_err=k1_err, ms=k1_ms,
              plain_ms=k1_plain_ms, bound_ms=k1_bound, bound_by=k1_by,
              bound_share=k1_bound / k1_ms, library_ms=library_ms,
@@ -2495,10 +2778,12 @@ def main() -> int:
              source="src/repro_torch/kernels/csrc/stencil_tile.cuh",
              replaces="src/repro/kernels/pipeline.py:85",
              launches=main_launches["stencil_cuda_batched"]
-             + bench_launches["stencil_cuda_batched"],
+             + bench_launches["stencil_cuda_batched"]
+             + conf_launches["stencil_cuda_batched"],
              launches_by_phase=dict(
                  main=main_launches["stencil_cuda_batched"],
-                 bench=bench_launches["stencil_cuda_batched"]),
+                 bench=bench_launches["stencil_cuda_batched"],
+                 conformance=conf_launches["stencil_cuda_batched"]),
              max_abs_err=k2_err, ms=k2_ms,
              plain_ms=k2_plain_ms, bound_ms=k2_bound, bound_by=k2_by,
              bound_share=k2_bound / k2_ms, library_ms=k2_library_ms,
@@ -2517,4 +2802,6 @@ if __name__ == "__main__":
         sys.exit(lm_launch_child(*sys.argv[2:4]))
     if sys.argv[1:2] == ["--example-child"]:
         sys.exit(example_child(*sys.argv[2:]))
+    if sys.argv[1:2] == ["--conformance-build-child"]:
+        sys.exit(conformance_build_child(sys.argv[2]))
     sys.exit(main())

@@ -1,7 +1,8 @@
 #!/usr/bin/env bash
 # CI gate of the PyTorch/CUDA port (src/repro_torch) on the CPU: lint, the
-# stencil lint gate, the port's tests, a smoke run of its quickstart and
-# the benchmark smoke gates (benchmarks_torch/).
+# stencil lint gate, the conformance audit, the dry-run tables on a small
+# cell, the port's tests, a smoke run of its quickstart and the benchmark
+# smoke gates (benchmarks_torch/).
 # The counterpart of scripts/ci.sh, which gates the JAX package.
 #
 # Usage: scripts/ci_torch.sh [fast]
@@ -17,7 +18,8 @@ if [[ "${1:-}" == "fast" ]]; then
 fi
 
 PORT_FILES=(src/repro_torch examples_torch benchmarks_torch
-            scripts/lint_stencils_torch.py tests/test_torch_*.py
+            scripts/lint_stencils_torch.py scripts/audit_slow_markers_torch.py
+            scripts/make_experiments_tables_torch.py tests/test_torch_*.py
             tests/_torch_*.py)
 
 echo "== lint: pyflakes (the port) =="
@@ -45,6 +47,24 @@ s = doc["summary"]
 print("lint JSON ok: %d literal(s), %d error(s), %d warning(s)"
       % (len(doc["files"]), s["errors"], s["warnings"]))
 '
+
+echo "== audit: the port's conformance suite (profiles, pinned floor) =="
+python scripts/audit_slow_markers_torch.py
+
+echo "== tables: make_experiments_tables_torch.py on a small dry-run =="
+# one 1-layer cell lowered on the fake backend and one skipped cell, into a
+# temporary directory; the script renders both tables from them
+TABLES_TMP="$(mktemp -d)"
+trap 'rm -rf "$TABLES_TMP"' EXIT
+for cell in "mamba2_130m decode_32k --override n_layers=1" \
+            "granite_3_2b long_500k"; do
+  set -- $cell
+  python -m repro_torch.launch.dryrun --arch "$1" --shape "$2" "${@:3}" \
+    --results "$TABLES_TMP/dryrun_results.json" > "$TABLES_TMP/dryrun.log"
+done
+python scripts/make_experiments_tables_torch.py \
+  --results "$TABLES_TMP/dryrun_results.json" | tee "$TABLES_TMP/tables.md"
+grep -q "tables printed: 1 ok, 1 skipped, 0 failed" "$TABLES_TMP/tables.md"
 
 echo "== tier-1: pytest (the port's tests) =="
 python -m pytest -x -q --durations=15 "${MARK[@]}" tests/test_torch_*.py

@@ -24,8 +24,8 @@ template sources in ``csrc/`` and the flags, under
 ``build/repro_torch_kernels/<key>/`` at the root of the checkout.  Grid
 shape, tile, halo and fusion depth are launch arguments, so one build
 serves every shape and depth of a spec's structure.  :func:`build_many`
-starts one ``nvcc`` per missing library, all at once, and counts each
-compile on ``build_many.compiles``.
+starts one ``nvcc`` per missing library, at most ``2 * os.cpu_count()``
+at once, and counts each compile on ``build_many.compiles``.
 
 The built library is also what the persistent design store carries
 (:mod:`repro_torch.runtime.store`, tier ``cuda_so``): :func:`export_library`
@@ -41,6 +41,7 @@ import os
 import shutil
 import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -281,17 +282,18 @@ def nvcc_path() -> str:
 def build_many(specs, ptxas_info: bool = False) -> list[KernelLib]:
     """Build (where missing) and load the kernel of every spec.
 
-    One ``nvcc`` process is started per missing library, all together,
-    then each is awaited.  A failed build raises with the compiler's
+    One ``nvcc`` process is started per missing library, at most
+    ``2 * os.cpu_count()`` running at once (each takes hundreds of MB),
+    and each is awaited.  A failed build raises with the compiler's
     output.  ``ptxas_info`` adds ``-Xptxas -v`` and keeps the compiler's
     report on ``KernelLib.build_log``.
     """
     root = BUILD_ROOT
     with _LOCK:
         keys = [kernel_key(s) for s in specs]
-        jobs = {}
+        todo = {}
         for spec, key in zip(specs, keys):
-            if key in _LOADED or key in jobs:
+            if key in _LOADED or key in todo:
                 continue
             d = root / key
             so = d / "libsasa.so"
@@ -307,19 +309,22 @@ def build_many(specs, ptxas_info: bool = False) -> list[KernelLib]:
                 cmd += ["-Xptxas", "-v"]
             cmd += ["-I", str(CSRC), "-I", str(d), str(d / "kernel.cu"),
                     "-o", str(tmp)]
-            proc = subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True,
-            )
-            jobs[key] = (proc, tmp, so)
+            todo[key] = (cmd, tmp, so)
         logs = {}
         failed = []
-        for key, (proc, tmp, so) in jobs.items():
-            out, _ = proc.communicate()
-            logs[key] = out
+        jobs = max(1, min(2 * (os.cpu_count() or 1), len(todo)))
+        with ThreadPoolExecutor(jobs) as pool:
+            done = list(pool.map(
+                lambda job: subprocess.run(
+                    job[0], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True),
+                todo.values()))
+        for (key, (_, tmp, so)), proc in zip(todo.items(), done):
+            logs[key] = proc.stdout
             build_many.compiles += 1
             if proc.returncode != 0:
-                failed.append(f"[{key}] nvcc exited {proc.returncode}:\n{out}")
+                failed.append(
+                    f"[{key}] nvcc exited {proc.returncode}:\n{proc.stdout}")
             else:
                 os.replace(tmp, so)
         if failed:

@@ -442,7 +442,7 @@ def chunked_cross_entropy(h, table, targets, valid, n_chunks=8):
     V = table.shape[0]
     Vc = -(-V // n_chunks)
     pad = n_chunks * Vc - V
-    tbl = F.pad(table, (0, 0, 0, pad)) if pad else table
+    tbl = spmd.pad(table, (0, 0, 0, pad)) if pad else table
     tgt = torch.where(valid, targets, 0)
     m = torch.full((B, S), -1e30, dtype=torch.float32, device=h.device)
     l = torch.zeros((B, S), dtype=torch.float32, device=h.device)

@@ -330,7 +330,7 @@ def _causal_conv(x, w, b, state=None):
     The K products are summed in order i = 0..K-1."""
     K = w.shape[0]
     # no state: K-1 zero rows in front (a pad keeps a DTensor's layout)
-    xx = F.pad(x, (0, 0, K - 1, 0)) if state is None \
+    xx = spmd.pad(x, (0, 0, K - 1, 0)) if state is None \
         else torch.cat([state, x], dim=1)
     S = x.shape[1]
     y = xx[:, 0:S] * w[0].to(x.dtype)
@@ -386,11 +386,11 @@ def mamba2_apply(x, p, meta, *, chunk=64, state=None, return_state=False):
     Sp = nc * chunk
     pad = Sp - S
     if pad:
-        xs = F.pad(xs, (0, 0, 0, 0, 0, pad))
-        Bm = F.pad(Bm, (0, 0, 0, 0, 0, pad))
-        Cm = F.pad(Cm, (0, 0, 0, 0, 0, pad))
-        dA = F.pad(dA, (0, 0, 0, pad))
-        dt = F.pad(dt, (0, 0, 0, pad))
+        xs = spmd.pad(xs, (0, 0, 0, 0, 0, pad))
+        Bm = spmd.pad(Bm, (0, 0, 0, 0, 0, pad))
+        Cm = spmd.pad(Cm, (0, 0, 0, 0, 0, pad))
+        dA = spmd.pad(dA, (0, 0, 0, pad))
+        dt = spmd.pad(dt, (0, 0, 0, pad))
 
     def rs(a, *shape):
         return spmd.even_split(a, 1, nc).reshape(B, nc, chunk, *shape)
@@ -399,7 +399,7 @@ def mamba2_apply(x, p, meta, *, chunk=64, state=None, return_state=False):
     B_c = rs(Bm, nh, ns).float()
     C_c = rs(Cm, nh, ns).float()
     dA_c, dt_c = rs(dA, nh), rs(dt, nh)
-    Acum = torch.cumsum(dA_c, dim=2)                          # (B,nc,Q,nh)
+    Acum = spmd.cumsum(dA_c, dim=2)                           # (B,nc,Q,nh)
     # intra-chunk (diagonal) term: L[i,j] = exp(Acum_i - Acum_j) for i >= j
     Lmat = _decay(Acum[:, :, :, None, :] - Acum[:, :, None, :, :])
     tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
@@ -562,7 +562,7 @@ def rglru_apply(x, p, *, state=None, return_state=False, chunk=256):
 
     Q = min(chunk, S)
     nc = -(-S // Q)
-    xc_p = F.pad(xc, (0, 0, 0, nc * Q - S))
+    xc_p = spmd.pad(xc, (0, 0, 0, nc * Q - S))
     valid = (torch.arange(nc * Q, device=x.device) < S)[:, None]
     hs = []
     for c in range(nc):

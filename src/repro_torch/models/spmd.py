@@ -35,7 +35,9 @@ does and DTensor cannot:
   * ``constrain`` and ``per_rank`` keep a dim whole where its mesh axes
     do not divide it (a batch of 1 over 16 ranks);
   * :func:`sum_grad` and :func:`psum` are the autograd-aware collectives
-    of ``shard_map``'s transposes, for code that runs on local shards.
+    of ``shard_map``'s transposes, for code that runs on local shards;
+  * :func:`pad` and :func:`cumsum` run on a DTensor on every torch
+    version (torch 2.11's DTensor lacks working rules for them).
 """
 from __future__ import annotations
 
@@ -105,6 +107,57 @@ def replicated(t, logical: tuple):
 
     t = distribute_tensor(t, m, [Replicate()] * m.ndim, src_data_rank=None)
     return constrain(t, logical)
+
+
+def _on_local(x, fn, whole: set, grown=None, keep_partial=True):
+    """``fn`` of each rank's local tensor of the DTensor ``x``, after the
+    dims in ``whole`` (and a partial sum, unless ``keep_partial``) are
+    gathered; the result keeps those placements, its shape ``x``'s with
+    ``grown`` added per dim.  For ops torch 2.11's DTensor cannot run."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    place = [Replicate() if (p.is_shard() and p.dim in whole)
+             or (p.is_partial() and not keep_partial) else p
+             for p in x.placements]
+    if place != list(x.placements):
+        x = x.redistribute(x.device_mesh, place)
+    shape = [n + g for n, g in zip(x.shape, grown or [0] * x.ndim)]
+    stride = [math.prod(shape[d + 1:]) for d in range(len(shape))]
+    return DTensor.from_local(
+        fn(x.to_local()), x.device_mesh, place, run_check=False,
+        shape=torch.Size(shape), stride=tuple(stride))
+
+
+def pad(x, widths: tuple, value: float = 0.0):
+    """``F.pad(x, widths, value=value)``.  On a DTensor each rank pads its
+    local tensor, with the placements torch 2.13's rule for ``pad`` gives:
+    a dim sharded and padded is gathered first (``Replicate``), a partial
+    sum stays partial under a zero pad, every other placement stays.
+    Torch 2.11's rule raises an ``IndexError`` while redistributing (16
+    dry-run cells: the causal conv, the SSD and RG-LRU chunk pads, the
+    chunked loss's table)."""
+    import torch.nn.functional as F
+
+    if not _is_dtensor(x):
+        return F.pad(x, widths, value=value)
+    grown = [0] * x.ndim
+    for i in range(0, len(widths), 2):
+        grown[x.ndim - 1 - i // 2] = widths[i] + widths[i + 1]
+    return _on_local(x, lambda t: F.pad(t, widths, value=value),
+                     {d for d, g in enumerate(grown) if g}, grown,
+                     keep_partial=value == 0)
+
+
+def cumsum(x, dim: int):
+    """``torch.cumsum(x, dim)``.  On a DTensor each rank sums its local
+    tensor along ``dim``, with the placements torch 2.13's rule gives:
+    ``dim`` gathered where it is sharded, a partial sum made whole.
+    Torch 2.11's DTensor has no rule for ``flip``, which the backward of
+    ``cumsum`` runs (mamba2-130m ``train_4k``'s SSD decay sums)."""
+    if not _is_dtensor(x):
+        return torch.cumsum(x, dim)
+    return _on_local(x, lambda t: torch.cumsum(t, dim), {dim % x.ndim},
+                     keep_partial=False)
 
 
 def even_split(t, dim: int, lead: int):

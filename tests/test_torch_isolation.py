@@ -5,10 +5,12 @@ of JAX fails), every module of ``repro_torch`` and ``chip_smoke`` (whose
 work sits under ``if __name__ == "__main__"``) must import, and no
 ``repro`` module may have been loaded.  The same holds for the port's
 examples (``examples_torch/*.py``, work under ``main``) and its scripts
-(``scripts/lint_stencils_torch.py``; ``scripts/ci_torch.sh`` runs only
-the port's files), and for its benchmarks (``benchmarks_torch/*.py``,
-which import neither ``jax`` nor ``repro`` nor the reference's
-``benchmarks``).
+(``scripts/lint_stencils_torch.py``, ``scripts/make_experiments_tables_torch.py``;
+``scripts/ci_torch.sh`` runs only the port's files), for the conformance
+cases ``chip_smoke.py`` shares with the CPU suite
+(``tests/_torch_conformance_cases.py``), and for its benchmarks
+(``benchmarks_torch/*.py``, which import neither ``jax`` nor ``repro``
+nor the reference's ``benchmarks``).
 """
 from __future__ import annotations
 
@@ -84,7 +86,10 @@ def test_port_sources_never_name_jax_or_repro():
 
 EXAMPLES = sorted((ROOT / "examples_torch").glob("*.py"))
 LINT_SCRIPT = ROOT / "scripts" / "lint_stencils_torch.py"
+TABLES_SCRIPT = ROOT / "scripts" / "make_experiments_tables_torch.py"
+CONFORMANCE_CASES = ROOT / "tests" / "_torch_conformance_cases.py"
 CI_SCRIPT = ROOT / "scripts" / "ci_torch.sh"
+PORT_FILES = [LINT_SCRIPT, TABLES_SCRIPT, CONFORMANCE_CASES]
 
 FILES_SCRIPT = r"""
 import importlib.util, json, sys
@@ -105,8 +110,8 @@ def test_examples_and_scripts_import_neither_jax_nor_repro():
         "train_lm.py", "serve_lm.py", "elastic_restart.py"}
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run(
-        [sys.executable, "-c", FILES_SCRIPT, *map(str, EXAMPLES),
-         str(LINT_SCRIPT)], cwd=ROOT, env=env, capture_output=True,
+        [sys.executable, "-c", FILES_SCRIPT, *map(str, EXAMPLES + PORT_FILES)],
+        cwd=ROOT, env=env, capture_output=True,
         text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     report = json.loads(proc.stdout.strip().splitlines()[-1])
@@ -114,9 +119,9 @@ def test_examples_and_scripts_import_neither_jax_nor_repro():
 
 
 def test_examples_and_scripts_never_name_jax_or_repro():
-    """The import lines of the examples and the lint script, and every
-    command of the CI script, name the port only."""
-    for path in EXAMPLES + [LINT_SCRIPT]:
+    """The import lines of the examples, the scripts and the conformance
+    cases, and every command of the CI script, name the port only."""
+    for path in EXAMPLES + PORT_FILES:
         for line in path.read_text().splitlines():
             code = line.split("#", 1)[0].strip()
             if code.startswith(("import ", "from ")):
@@ -173,3 +178,84 @@ def test_benchmarks_never_name_jax_repro_or_benchmarks():
                 assert not mod.startswith(("jax", "repro.")), line
                 assert mod not in ("repro", "benchmarks"), line
                 assert not mod.startswith("benchmarks."), line
+
+
+def _load(path: Path, name: str):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _cell(status, seconds=0.0, args=None, temps=None, terms=(0, 0, 0),
+          useful=0.0, fits=True):
+    """One results entry in the reference's schema (the fields both
+    scripts read), as ``dryrun_results.json`` holds it."""
+    if status != "ok":
+        return {"status": status, "seconds": seconds, "report": None}
+    names = ("compute", "memory", "collective")
+    return {"status": "ok", "seconds": seconds, "report": {
+        "memory_per_chip": {"arguments": args, "temps": temps,
+                            "peak": args + temps},
+        "fits": fits, "bottleneck": names[terms.index(max(terms))],
+        "useful_flops_ratio": useful,
+        **{f"{n}_term": t for n, t in zip(names, terms)}}}
+
+
+def test_tables_script_rows_match_the_reference():
+    """On one results dict the port's tables have the reference's rows
+    (the header's seconds column is named for what the port measures),
+    and the counts of ok and skipped cells are right."""
+    ref = _load(ROOT / "scripts" / "make_experiments_tables.py", "_ref_tables")
+    port = _load(TABLES_SCRIPT, "_port_tables")
+    results = {
+        "granite_3_2b|train_4k|16x16": _cell(
+            "ok", 41.2, 18.43 * 2**30, 3.1 * 2**30, (0.0998, 7.32, 0.236),
+            0.74),
+        "mamba2_130m|decode_32k|2x16x16": _cell(
+            "ok", 9.8, 0.12 * 2**30, 0.05 * 2**30, (1.07e-6, 8.46e-4, 6.65e-5),
+            0.41),
+        "yi_34b|long_500k|16x16": _cell("skipped"),
+        "granite_3_2b|long_500k|2x16x16": _cell("skipped"),
+        "internlm2_1_8b|decode_32k|16x16": _cell(
+            "ok", 12.0, 3.0 * 2**30, 0.26 * 2**30, (2.69e-5, 0.159, 2.49e-3),
+            0.93, fits=False),
+    }
+    hill = {"granite_3_2b|train_4k|16x16": _cell(
+        "ok", 40.0, 9.0 * 2**30, 2.0 * 2**30, (0.09, 3.5, 0.2), 0.8)}
+    for name, args in (("dryrun_table", (results,)),
+                       ("roofline_table", (results, hill))):
+        want = getattr(ref, name)(*args).splitlines()
+        got = getattr(port, name)(*args).splitlines()
+        assert got[2:] == want[2:], name
+        assert got[1] == want[1] and len(got) == len(want)
+    assert len(port.dryrun_table(results).splitlines()) == 2 + 5
+    assert len(port.roofline_table(results).splitlines()) == 2 + 3
+    assert port.counts(results) == (3, 2, 0)
+    failed = dict(results, **{"yi_34b|train_4k|16x16": _cell("failed", 3.0)})
+    assert port.counts(failed) == (3, 2, 1)
+    assert "| yi_34b | train_4k | 16x16 | failed | 3 |" in port.dryrun_table(
+        failed)
+
+
+def test_tables_script_fills_a_document(tmp_path):
+    """``--doc`` replaces both markers in place; a record with no
+    arguments/temps split shows dashes, not a split made up from peak."""
+    port = _load(TABLES_SCRIPT, "_port_tables_doc")
+    cell = _cell("ok", 5.0, 2**30, 2**30, (1.0, 2.0, 0.5), 0.5)
+    del cell["report"]["memory_per_chip"]["arguments"]
+    del cell["report"]["memory_per_chip"]["temps"]
+    res = tmp_path / "dryrun_results.json"
+    res.write_text(json.dumps({"a|train_4k|16x16": cell,
+                               "b|long_500k|16x16": _cell("skipped")}))
+    doc = tmp_path / "DOC.md"
+    doc.write_text("# x\n<!-- DRYRUN_TABLE -->\n\n<!-- ROOFLINE_TABLE -->\n")
+    assert port.main(["--results", str(res), "--doc", str(doc),
+                      "--hillclimb", str(tmp_path / "none.json")]) == 0
+    text = doc.read_text()
+    assert "<!--" not in text
+    assert "| a | train_4k | 16x16 | ok | 5 | — | — | True |" in text
+    assert "| a | train_4k | 16x16 | 1.000 | 2.000 | 0.500 | memory | 0.50 |" \
+        in text
