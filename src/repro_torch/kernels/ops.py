@@ -19,6 +19,7 @@ from repro_torch.kernels.blockops import (
     wrap_round_fixup,
 )
 from repro_torch.kernels.stencil import stencil_cuda
+from repro_torch.trace import span
 
 BACKENDS = ("ref", "torch", "cuda")
 
@@ -123,20 +124,23 @@ def run_rounds(
 
     Specs with streamed wrap margins cap the per-round depth at
     ``spec.wrap_round_depth`` and re-wrap the iterate between rounds.
+    Each round, its wrap fix-up included, is one ``sasa.round`` span
+    (:mod:`repro_torch.trace`).
     """
     env = dict(arrays)
     out = env[spec.iterate_input]
     left = iterations
     first = True
     while left > 0:
-        step = min(s, left)
-        if spec.wrap_index_inputs:
-            step = min(step, max(spec.wrap_round_depth, 1))
-            if not first:
-                out = wrap_round_fixup(out, env, spec)
-                env[spec.iterate_input] = out
-        first = False
-        out = round_fn(spec, env, step, tile)
-        env[spec.iterate_input] = out
-        left -= step
+        with span("sasa.round"):
+            step = min(s, left)
+            if spec.wrap_index_inputs:
+                step = min(step, max(spec.wrap_round_depth, 1))
+                if not first:
+                    out = wrap_round_fixup(out, env, spec)
+                    env[spec.iterate_input] = out
+            first = False
+            out = round_fn(spec, env, step, tile)
+            env[spec.iterate_input] = out
+            left -= step
     return out

@@ -19,6 +19,11 @@ on ``stencil_cuda_batched.launches``); CPU tensors run the plain version
 ``stencil_cuda_batched.plain_calls``).  :func:`stencil_run_batched` is the round
 loop, with streamed wrap margins re-imposed between rounds by a
 ``torch.gather`` at grid granularity, outside the kernel.
+
+Its rounds and launches carry the spans ``sasa.round``,
+``sasa.launch.alloc`` and ``sasa.launch.enqueue`` (:mod:`repro_torch.trace`)
+and count their cell updates on ``launch_tile_kernel.updates_issued`` and
+``.updates_useful`` (:mod:`repro_torch.kernels.stencil`).
 """
 from __future__ import annotations
 

@@ -24,6 +24,10 @@ version :func:`stencil_torch_tiled` (counted on
 ``stencil_cuda.plain_calls``), which walks the same tiles with the
 same per-axis boundary rule through :mod:`repro_torch.kernels.blockops`
 and updates whole windows.
+
+A launch carries the spans ``sasa.launch.alloc`` and
+``sasa.launch.enqueue`` (:mod:`repro_torch.trace`) and counts its cell
+updates on ``launch_tile_kernel.updates_issued`` and ``.updates_useful``.
 """
 from __future__ import annotations
 
@@ -41,6 +45,7 @@ from repro_torch.kernels.blockops import (
     fused_iterations_on_block,
     torch_dtype,
 )
+from repro_torch.trace import span
 
 # Interior tile per number of axes; the row extent can be overridden.
 DEFAULT_TILES = {1: (256,), 2: (32, 64), 3: (8, 8, 32)}
@@ -225,13 +230,30 @@ def _device_of(spec: StencilSpec, arrays: Mapping[str, torch.Tensor]):
     return devs.pop()
 
 
+class LaunchPlan(NamedTuple):
+    """One launch's geometry after the batch (grid, tile, halo, s, shared
+    memory bytes), and the cell updates it issues and the useful ones,
+    per batch entry."""
+
+    geom: list[int]
+    issued: int
+    useful: int
+
+
 @functools.lru_cache(maxsize=256)
 def _launch_plan(
     spec: StencilSpec, s: int, tile: tuple[int, ...] | None
-) -> tuple[list[int], int]:
-    """The launch geometry after the batch (grid, tile, halo, s, shared
-    memory bytes) and the tile count; raises for what the kernel cannot
-    run.  Cached: the same spec, depth and tile launch every round."""
+) -> LaunchPlan:
+    """The launch geometry and update counts of one round;
+    raises for what the kernel cannot run.  Cached: the same spec, depth
+    and tile launch every round.
+
+    Issued updates: every thread block evaluates each stage's whole
+    region of :func:`stage_regions`, in edge tiles past the grid too, so
+    a grid issues the tile count times their summed cells (a block of a
+    spec with halo-index maps may widen an axis to its whole window,
+    which this count does not see).  Useful updates: the grid's cells
+    times ``s`` times the stages of an iteration."""
     cuda_build.check_supported(spec)
     g = plan_blocks(spec, s, tile)
     smem = smem_bytes_estimate(spec, s, tile)
@@ -253,7 +275,10 @@ def _launch_plan(
         + [0] * pad + [g["h"]] * spec.ndim
         + [s, smem]
     )
-    return geom, g["tiles"]
+    regions = stage_regions(spec, s, tile)
+    issued = g["tiles"] * sum(math.prod(r.extent) for r in regions)
+    useful = math.prod(g["grid_shape"]) * len(regions)
+    return LaunchPlan(geom, issued, useful)
 
 
 def launch_tile_kernel(
@@ -267,8 +292,12 @@ def launch_tile_kernel(
 
     Floating inputs are passed as the kernel's windows, halo-index maps
     (int32) through their own pointer array; wrap-index maps are consumed
-    by the round loop between rounds and not passed."""
-    geom, _ = _launch_plan(spec, s, None if tile is None else tuple(tile))
+    by the round loop between rounds and not passed.
+
+    Each launch adds its issued and useful cell updates
+    (:class:`LaunchPlan`) to ``launch_tile_kernel.updates_issued`` and
+    ``.updates_useful``."""
+    plan = _launch_plan(spec, s, None if tile is None else tuple(tile))
     dtype = torch_dtype(spec.dtype)
     B = batched[0].shape[0]
     want = (B,) + tuple(spec.shape)
@@ -287,20 +316,28 @@ def launch_tile_kernel(
         raise ValueError(f"batch {B} out of range")
     lib = cuda_build.get_kernel(spec)
     device = batched[0].device
-    out = torch.empty(want, dtype=dtype, device=device)
-    geom = [B] + geom
+    with span("sasa.launch.alloc"):
+        out = torch.empty(want, dtype=dtype, device=device)
+    geom = [B] + plan.geom
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = lib.launch(
-            [by_name[n].data_ptr() for n in cuda_build.float_inputs(spec)],
-            [by_name[n].data_ptr() for n in spec.halo_index_inputs],
-            out.data_ptr(), geom, stream,
-        )
+        with span("sasa.launch.enqueue"):
+            rc = lib.launch(
+                [by_name[n].data_ptr() for n in cuda_build.float_inputs(spec)],
+                [by_name[n].data_ptr() for n in spec.halo_index_inputs],
+                out.data_ptr(), geom, stream,
+            )
     if rc != 0:
         raise RuntimeError(
             f"{spec.name}: tile kernel launch failed with cudaError {rc}"
         )
+    launch_tile_kernel.updates_issued += B * plan.issued
+    launch_tile_kernel.updates_useful += B * plan.useful
     return out
+
+
+launch_tile_kernel.updates_issued = 0
+launch_tile_kernel.updates_useful = 0
 
 
 def stencil_cuda(

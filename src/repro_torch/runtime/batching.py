@@ -31,7 +31,10 @@ places inputs on the device (through pinned host memory for CUDA),
 and records a CUDA event, ``run.ready(pending)`` polls that event
 (``torch.cuda.Event.query``), and ``run.finalize(pending)`` waits and
 returns numpy (bfloat16 results come back as float32, which numpy lacks).
-``run(arrays)`` is the validated synchronous composition.
+``run(arrays)`` is the validated synchronous composition.  The kernel
+runner's ``stage`` and ``dispatch`` are the spans ``sasa.stage`` and
+``sasa.dispatch`` (:mod:`repro_torch.trace`); a dispatch carries the
+runner's solve sequence number.
 
 :func:`build_bucket_runner` wraps a runner built for a padded canonical
 **bucket** shape so it serves any grid that fits inside the bucket, with
@@ -43,6 +46,7 @@ host-streamed wrap margins and wrap maps; see
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import warnings
 from typing import Mapping, Sequence
 
@@ -57,6 +61,7 @@ from repro_torch.kernels.ops import resolve_pool
 from repro_torch.kernels.blockops import torch_dtype
 from repro_torch.kernels.stencil import default_tile
 from repro_torch.runtime.bucketing import bucket_plan
+from repro_torch.trace import span
 
 
 class DegradedDesignWarning(RuntimeWarning):
@@ -240,26 +245,30 @@ def _kernel_runner(spec, cfg, it, dev):
         path = "single_pe"
 
     def stage(arrays: Mapping[str, object]) -> dict[str, torch.Tensor]:
-        staged = {}
-        for n, (dt, _) in spec.inputs.items():
-            a = arrays[n]
-            t = a if isinstance(a, torch.Tensor) else torch.from_numpy(
-                np.require(a, requirements="CW")   # broadcast views copy
-            )
-            if dev.type == "cuda" and t.device.type == "cpu":
-                t = t.pin_memory()
-            staged[n] = t.to(
-                device=dev, dtype=torch_dtype(dt), non_blocking=True
-            ).contiguous()
-        return staged
+        with span("sasa.stage"):
+            staged = {}
+            for n, (dt, _) in spec.inputs.items():
+                a = arrays[n]
+                t = a if isinstance(a, torch.Tensor) else torch.from_numpy(
+                    np.require(a, requirements="CW")   # broadcast views copy
+                )
+                if dev.type == "cuda" and t.device.type == "cpu":
+                    t = t.pin_memory()
+                staged[n] = t.to(
+                    device=dev, dtype=torch_dtype(dt), non_blocking=True
+                ).contiguous()
+            return staged
+
+    solves = itertools.count()
 
     def dispatch(staged: Mapping[str, torch.Tensor]) -> Pending:
-        out = fn(dict(staged))
-        event = None
-        if dev.type == "cuda":
-            event = torch.cuda.Event()
-            event.record(torch.cuda.current_stream(dev))
-        return Pending(out, event)
+        with span("sasa.dispatch", next(solves)):
+            out = fn(dict(staged))
+            event = None
+            if dev.type == "cuda":
+                event = torch.cuda.Event()
+                event.record(torch.cuda.current_stream(dev))
+            return Pending(out, event)
 
     def ready(pending: Pending) -> bool:
         return pending.event is None or pending.event.query()

@@ -1,0 +1,17 @@
+"""Cell updates the tile kernel's thread blocks evaluate over the useful
+ones (grid cells x fused iterations x stages), over every launch of the
+run: the port's counters ``launch_tile_kernel.updates_issued`` and
+``.updates_useful``.  1 means no halo work; the trapezoid of deep fusion
+reads above.  Nothing where the port has no such counters or no kernel
+was launched (the plain versions)."""
+
+
+def read(rec):
+    try:
+        from repro_torch.kernels.stencil import launch_tile_kernel
+    except ImportError:
+        return None
+    useful = getattr(launch_tile_kernel, "updates_useful", 0)
+    if not useful:
+        return None
+    return launch_tile_kernel.updates_issued / useful

@@ -1,0 +1,154 @@
+"""The port's spans (``repro_torch.trace``) and the tile kernel's update
+counters.
+
+With no profiler a span is one shared no-op and nothing accumulates.
+Under ``torch.profiler`` a CPU solve of the batched runner exports its
+``sasa.*`` spans, nested, and :func:`trace.totals` counts the same.  The
+counters ``launch_tile_kernel.updates_issued`` / ``.updates_useful`` equal
+the trapezoid's closed form.  The ``gpu`` test holds the spans against
+the CUDA runtime's launch events on the card::
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_trace.py
+"""
+from __future__ import annotations
+
+import json
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import trace
+from repro_torch.configs import stencils
+from repro_torch.core.model import ParallelismConfig
+from repro_torch.kernels import stencil
+from repro_torch.runtime.batching import build_batched_runner
+
+K2 = ParallelismConfig("temporal", s=2, buffer_depth=2)
+
+
+def solve_once(runner, shape, batch=2, seed=0):
+    rng = np.random.default_rng(seed)
+    arrays = {n: rng.random((batch,) + shape, dtype=np.float32)
+              for n in runner.spec.inputs}
+    return runner.dispatch(runner.stage(arrays))
+
+
+def profiled_events(tmp_path, fn, activities):
+    with torch.profiler.profile(activities=activities) as prof:
+        fn()
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    return json.loads(path.read_text())["traceEvents"]
+
+
+def spans(events, name):
+    return [e for e in events if e.get("ph") == "X" and e["name"] == name
+            and e.get("cat") == "user_annotation"]
+
+
+def inside(e, outer, eps=1e-3):
+    return (outer["ts"] - eps <= e["ts"]
+            and e["ts"] + e["dur"] <= outer["ts"] + outer["dur"] + eps)
+
+
+def test_no_profiler_no_span_and_nothing_accumulates():
+    assert trace.span("sasa.round") is trace.span("sasa.dispatch", 3)
+    trace.reset()
+    spec = stencils.jacobi2d((40, 36), iterations=5)
+    runner = build_batched_runner(spec, K2, iterations=5, device="cpu")
+    solve_once(runner, (40, 36))
+    assert trace.totals() == {}
+
+
+def test_a_profiled_cpu_solve_exports_nested_spans(tmp_path):
+    spec = stencils.jacobi2d((40, 36), iterations=5)
+    runner = build_batched_runner(spec, K2, iterations=5, device="cpu")
+    assert runner.path == "tile_pipeline"
+    trace.reset()
+    events = profiled_events(tmp_path, lambda: solve_once(runner, (40, 36)),
+                             [torch.profiler.ProfilerActivity.CPU])
+    (stage,) = spans(events, "sasa.stage")
+    (dispatch,) = spans(events, "sasa.dispatch")
+    rounds = spans(events, "sasa.round")
+    assert len(rounds) == 3            # 2 + 2 + 1 fused iterations
+    assert all(inside(r, dispatch) for r in rounds)
+    assert not inside(stage, dispatch)
+    assert spans(events, "sasa.launch.alloc") == []   # the plain version
+    got = trace.totals()
+    assert {n: c for n, (c, _) in got.items()} == {
+        "sasa.stage": 1, "sasa.dispatch": 1, "sasa.round": 3}
+    assert got["sasa.round"][1] <= got["sasa.dispatch"][1]
+    assert trace.span("sasa.round") is trace.span("sasa.stage")
+    trace.reset()
+    assert trace.totals() == {}
+
+
+def closed_form(spec, s, tile):
+    """Issued and useful updates of one grid, from the trapezoid alone."""
+    tiles = math.prod(math.ceil(n / t) for n, t in zip(spec.shape, tile))
+    issued = tiles * sum(math.prod(r.extent)
+                         for r in stencil.stage_regions(spec, s, tile))
+    return issued, math.prod(spec.shape) * s * len(spec.stages)
+
+
+@pytest.mark.parametrize("name, shape, s, tile, ratio", [
+    # sum over e = 0..7 of (64 + 2e)^2 over 8 * 64^2, 9728 rows of 9720
+    ("jacobi2d", (9720, 1024), 8, (64, 64),
+     sum((64 + 2 * e) ** 2 for e in range(8)) / (8 * 64**2) * 9728 / 9720),
+    # (18 * 10 * 34 + 16 * 8 * 32) over 2 * 16 * 8 * 32, the same rows
+    ("heat3d", (9720, 32, 32), 2, (16, 8, 32),
+     (18 * 10 * 34 + 4096) / (2 * 4096) * 9728 / 9720),
+    ("jacobi2d", (9720, 1024), 1, (128, 64), 9728 / 9720),
+    ("heat3d", (9720, 32, 32), 1, (16, 8, 32), 9728 / 9720),
+    ("jacobi2d", (256, 192), 1, (64, 64), 1.0),
+])
+def test_update_counts_are_the_trapezoids(name, shape, s, tile, ratio):
+    spec = stencils.get(name, shape=shape)
+    plan = stencil._launch_plan(spec, s, tile)
+    assert (plan.issued, plan.useful) == closed_form(spec, s, tile)
+    assert plan.issued / plan.useful == pytest.approx(ratio, rel=1e-12)
+
+
+@pytest.mark.gpu
+def test_each_launch_lies_in_its_enqueue_span(tmp_path):
+    """On the card: every ``sasa_tile_kernel``'s runtime launch call lies
+    inside a ``sasa.launch.enqueue`` span on the profiler's clock, every
+    launch span inside a round, and the counters grew by three launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the tile kernel has no CPU mode")
+    dev = torch.device("cuda")
+    shape = (256, 192)
+    spec = stencils.jacobi2d(shape, iterations=6)
+    runner = build_batched_runner(spec, K2, iterations=6, device=dev)
+    staged = runner.stage({
+        n: np.random.default_rng(1).random((2,) + shape, dtype=np.float32)
+        for n in spec.inputs})
+    runner.dispatch(staged).event.synchronize()        # builds the kernel
+    f = stencil.launch_tile_kernel
+    before = (f.updates_issued, f.updates_useful)
+
+    def solve():
+        runner.dispatch(staged).event.synchronize()
+
+    events = profiled_events(tmp_path, solve, [
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA])
+    plan = stencil._launch_plan(spec, 2, tuple(runner.tile))
+    assert (f.updates_issued - before[0], f.updates_useful - before[1]) == (
+        3 * 2 * plan.issued, 3 * 2 * plan.useful)
+    kernels = [e for e in events if e.get("cat") == "kernel"
+               and e["name"].startswith("sasa_tile_kernel")]
+    assert len(kernels) == 3
+    ids = {e["args"]["correlation"] for e in kernels}
+    calls = [e for e in events if e.get("cat") == "cuda_runtime"
+             and e.get("args", {}).get("correlation") in ids]
+    assert len(calls) == 3
+    enqueues = spans(events, "sasa.launch.enqueue")
+    rounds = spans(events, "sasa.round")
+    assert len(enqueues) == 3 and len(rounds) == 3
+    for c in calls:
+        assert any(inside(c, e) for e in enqueues), c
+    for e in enqueues + spans(events, "sasa.launch.alloc"):
+        assert any(inside(e, r) for r in rounds), e
