@@ -51,16 +51,22 @@
 // the closed form of kernels/stencil.py::stage_regions, which the ranker
 // (core/model.py::predict_gpu) sums to price the work.
 //
-// Boundary rule.  Edge blocks load with the rule folded into the index
-// (zero/constant: a select, replicate: clamp, periodic: wrap); after each
-// stage zero/constant cells outside the grid take the boundary value and
-// replicate cells copy the clamped in-grid cell.  That cell lies between
-// the cell and the tile on every axis, hence inside the region (tiles
-// start inside the grid).  Interior blocks, whose whole window lies inside
-// the grid (93-97% of blocks at the paper's sizes), skip all of it: the
-// load is row copies with cp.async (16 bytes where rows are aligned, else
-// 4), with no fold and no per-cell grid test, and no fixup pass or barrier
-// runs after a stage.
+// Boundary rule.  Interior blocks, whose whole window lies inside the
+// grid, load it as row copies with cp.async (16 bytes where rows are
+// aligned, else 4), and run no per-cell grid test, fixup pass or barrier
+// after a stage.  They are 85-86% of the blocks of JACOBI2D 9720x1024 on
+// 64x64 and 128x64 tiles, and none of HEAT3D 9720x32x32 on 16x8x32 tiles,
+// whose window overhangs the 32-cell row on both sides.  Edge blocks of
+// float32 specs without halo-index maps copy the window's in-grid box the
+// same way, then give every cell outside it the rule: zero/constant the
+// boundary value, replicate the clamped in-grid cell (copied in shared
+// memory), periodic the wrapped grid cell (a 4-byte cp.async each).  Other
+// edge blocks load one cell at a time with the rule folded into the index
+// (zero/constant: a select, replicate: clamp, periodic: wrap).  After each
+// stage of an edge block, zero/constant cells outside the grid take the
+// boundary value and replicate cells copy the clamped in-grid cell.  That
+// cell lies between the cell and the tile on every axis, hence inside the
+// region (tiles start inside the grid).
 //
 // Streamed halo-index maps (bucketed replicate serving).  Each map holds,
 // per cell, the grid coordinate along its axis that the cell copies from:
@@ -399,14 +405,151 @@ __device__ __forceinline__ void sasa_cp_async16(float* dst,
   for (int i = 0; i < 4; ++i) dst[i] = src[i];
 #endif
 }
+__device__ __forceinline__ void sasa_cp_async8(float* dst, const float* src) {
+#ifdef __CUDA_ARCH__
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+#else
+  for (int i = 0; i < 2; ++i) dst[i] = src[i];
+#endif
+}
 __device__ __forceinline__ void sasa_cp_async_wait_all() {
 #ifdef __CUDA_ARCH__
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 #endif
 }
 
-// Load every input window.  Interior blocks copy rows; edge blocks fold
-// the boundary rule into the index of every cell.
+#if !SASA_STORE_BF16 && SASA_N_HALO == 0
+// Copies V floats with one cp.async (16, 8 or 4 bytes).
+template <int V>
+__device__ __forceinline__ void sasa_cp_async(float* dst, const float* src) {
+  if (V == 4)
+    sasa_cp_async16(dst, src);
+  else if (V == 2)
+    sasa_cp_async8(dst, src);
+  else
+    sasa_cp_async4(dst, src);
+}
+
+// Copies the box `in` of window coordinates of every input window, whose
+// first cell is grid cell `first`, row by row with cp.async, V floats a
+// copy.  Offsets from `first` fit in 32 bits (checked by the launch).
+template <int V>
+__device__ __forceinline__ void sasa_copy_box(const SasaPtrs& p,
+                                              const SasaGeom& g,
+                                              float* const* buf,
+                                              const SasaBox& in,
+                                              long long first) {
+  const int plane = g.n[1] * g.n[2];
+  sasa_for_box(in.ext[0], in.ext[1], in.ext[2] / V, [&](int z, int y, int q) {
+    const int src = z * plane + y * g.n[2] + V * q;
+    const int c = sasa_cell(g, in.lo[0] + z, in.lo[1] + y, in.lo[2] + V * q);
+#pragma unroll
+    for (int i = 0; i < SASA_N_IN; ++i)
+      sasa_cp_async<V>(buf[i] + c, p.in[i] + first + src);
+  });
+}
+
+// Calls f(z, y, x, c) for every window cell outside the box `in`: per real
+// axis the slabs below and above it, spanning `in` on the axes before and
+// the whole window on the axes after.
+template <typename F>
+__device__ __forceinline__ void sasa_for_outside(const SasaBox& in,
+                                                 const SasaGeom& g, F f) {
+#pragma unroll
+  for (int d = 3 - SASA_NDIM; d < 3; ++d) {
+#pragma unroll
+    for (int above = 0; above < 2; ++above) {
+      SasaBox b;
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        b.lo[a] = a < d ? in.lo[a] : 0;
+        b.ext[a] = a < d ? in.ext[a] : g.win[a];
+      }
+      b.lo[d] = above ? in.lo[d] + in.ext[d] : 0;
+      b.ext[d] = above ? g.win[d] - b.lo[d] : in.lo[d];
+      sasa_for_region(b, g, f);
+    }
+  }
+}
+
+// Load every input window of an edge block: the window's in-grid box as
+// row copies (as an interior block loads its window), then the boundary
+// rule on the cells outside it.  Equal, cell for cell, to the per-cell
+// load with the rule folded into the index.
+__device__ __forceinline__ void sasa_load_edge(const SasaPtrs& p,
+                                               const SasaGeom& g,
+                                               float* const* buf,
+                                               const int* org,
+                                               long long base) {
+  SasaBox in;
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    in.lo[d] = org[d] < 0 ? -org[d] : 0;
+    const int end = g.n[d] - org[d];
+    in.ext[d] = (end < g.win[d] ? end : g.win[d]) - in.lo[d];
+  }
+  const long long first =
+      base + ((long long)(org[0] + in.lo[0]) * g.n[1] + org[1] + in.lo[1]) *
+                 g.n[2] + org[2] + in.lo[2];
+  const int c0 = sasa_cell(g, in.lo[0], in.lo[1], in.lo[2]);
+  // Every row's first cell is aligned when the first row's is and the row
+  // strides (grid and shared) keep the alignment.
+  bool a16 = g.n[2] % 4 == 0 && in.ext[2] % 4 == 0 && g.st[1] % 4 == 0 &&
+             c0 % 4 == 0;
+  bool a8 = g.n[2] % 2 == 0 && in.ext[2] % 2 == 0 && g.st[1] % 2 == 0 &&
+            c0 % 2 == 0;
+#pragma unroll
+  for (int i = 0; i < SASA_N_IN; ++i) {
+    a16 = a16 && ((uintptr_t)(p.in[i] + first) & 15) == 0;
+    a8 = a8 && ((uintptr_t)(p.in[i] + first) & 7) == 0;
+  }
+  if (a16)
+    sasa_copy_box<4>(p, g, buf, in, first);
+  else if (a8)
+    sasa_copy_box<2>(p, g, buf, in, first);
+  else
+    sasa_copy_box<1>(p, g, buf, in, first);
+#if SASA_BOUNDARY <= 1
+  sasa_for_outside(in, g, [&](int, int, int, int c) {
+#pragma unroll
+    for (int i = 0; i < SASA_N_IN; ++i)
+      buf[i][c] = (SASA_BOUNDARY == 0) ? 0.0f : SASA_BVALUE;
+  });
+  sasa_cp_async_wait_all();
+#elif SASA_BOUNDARY == 2
+  // The clamped cell lies in `in`: wait for its copy.
+  sasa_cp_async_wait_all();
+  __syncthreads();
+  sasa_for_outside(in, g, [&](int z, int y, int x, int c) {
+    const int t = sasa_cell(
+        g, sasa_clamp(z, in.lo[0], in.lo[0] + in.ext[0] - 1),
+        sasa_clamp(y, in.lo[1], in.lo[1] + in.ext[1] - 1),
+        sasa_clamp(x, in.lo[2], in.lo[2] + in.ext[2] - 1));
+#pragma unroll
+    for (int i = 0; i < SASA_N_IN; ++i) buf[i][c] = buf[i][t];
+  });
+#else
+  sasa_for_outside(in, g, [&](int z, int y, int x, int c) {
+    const long long src =
+        ((long long)sasa_fold(org[0] + z, g.n[0]) * g.n[1] +
+         sasa_fold(org[1] + y, g.n[1])) * g.n[2] +
+        sasa_fold(org[2] + x, g.n[2]);
+#pragma unroll
+    for (int i = 0; i < SASA_N_IN; ++i)
+      sasa_cp_async4(buf[i] + c, p.in[i] + base + src);
+  });
+  sasa_cp_async_wait_all();
+#endif
+}
+#endif
+
+// Load every input window.  Interior blocks copy rows; edge blocks of
+// float32 specs without halo-index maps copy their in-grid box
+// (sasa_load_edge); other edge blocks, and every block of a bfloat16
+// spec, fold the boundary rule into the index of every cell.
 template <bool INTERIOR>
 __device__ __forceinline__ void sasa_load_windows(const SasaPtrs& p,
                                                   const SasaGeom& g,
@@ -443,6 +586,12 @@ __device__ __forceinline__ void sasa_load_windows(const SasaPtrs& p,
       });
     }
     sasa_cp_async_wait_all();
+    return;
+  }
+#endif
+#if !SASA_STORE_BF16 && SASA_N_HALO == 0
+  if (!INTERIOR) {
+    sasa_load_edge(p, g, buf, org, base);
     return;
   }
 #endif

@@ -26,8 +26,10 @@ same per-axis boundary rule through :mod:`repro_torch.kernels.blockops`
 and updates whole windows.
 
 A launch carries the spans ``sasa.launch.alloc`` and
-``sasa.launch.enqueue`` (:mod:`repro_torch.trace`) and counts its cell
-updates on ``launch_tile_kernel.updates_issued`` and ``.updates_useful``.
+``sasa.launch.enqueue`` (:mod:`repro_torch.trace`), counts its cell
+updates on ``launch_tile_kernel.updates_issued`` and ``.updates_useful``,
+and its thread blocks on ``.blocks``, of which ``.edge_blocks`` have a
+window that leaves the grid.
 """
 from __future__ import annotations
 
@@ -232,12 +234,15 @@ def _device_of(spec: StencilSpec, arrays: Mapping[str, torch.Tensor]):
 
 class LaunchPlan(NamedTuple):
     """One launch's geometry after the batch (grid, tile, halo, s, shared
-    memory bytes), and the cell updates it issues and the useful ones,
-    per batch entry."""
+    memory bytes), and per batch entry the cell updates it issues and the
+    useful ones, its tiles, and its edge tiles (those whose window leaves
+    the grid on some axis)."""
 
     geom: list[int]
     issued: int
     useful: int
+    tiles: int
+    edge_tiles: int
 
 
 @functools.lru_cache(maxsize=256)
@@ -253,7 +258,11 @@ def _launch_plan(
     a grid issues the tile count times their summed cells (a block of a
     spec with halo-index maps may widen an axis to its whole window,
     which this count does not see).  Useful updates: the grid's cells
-    times ``s`` times the stages of an iteration."""
+    times ``s`` times the stages of an iteration.
+
+    Edge tiles: the tiles whose window (the tile and ``h`` cells on every
+    side) leaves the grid on some axis, which the kernel loads and updates
+    with the boundary rule; the others are its interior blocks."""
     cuda_build.check_supported(spec)
     g = plan_blocks(spec, s, tile)
     smem = smem_bytes_estimate(spec, s, tile)
@@ -278,7 +287,12 @@ def _launch_plan(
     regions = stage_regions(spec, s, tile)
     issued = g["tiles"] * sum(math.prod(r.extent) for r in regions)
     useful = math.prod(g["grid_shape"]) * len(regions)
-    return LaunchPlan(geom, issued, useful)
+    h = g["h"]
+    inside = math.prod(
+        sum(1 for i in range(nt) if i * t >= h and (i + 1) * t + h <= n)
+        for n, t, nt in zip(g["grid_shape"], g["tile"], g["n_tiles"])
+    )
+    return LaunchPlan(geom, issued, useful, g["tiles"], g["tiles"] - inside)
 
 
 def launch_tile_kernel(
@@ -296,7 +310,8 @@ def launch_tile_kernel(
 
     Each launch adds its issued and useful cell updates
     (:class:`LaunchPlan`) to ``launch_tile_kernel.updates_issued`` and
-    ``.updates_useful``."""
+    ``.updates_useful``, and its blocks and edge blocks to ``.blocks`` and
+    ``.edge_blocks``."""
     plan = _launch_plan(spec, s, None if tile is None else tuple(tile))
     dtype = torch_dtype(spec.dtype)
     B = batched[0].shape[0]
@@ -333,11 +348,15 @@ def launch_tile_kernel(
         )
     launch_tile_kernel.updates_issued += B * plan.issued
     launch_tile_kernel.updates_useful += B * plan.useful
+    launch_tile_kernel.blocks += B * plan.tiles
+    launch_tile_kernel.edge_blocks += B * plan.edge_tiles
     return out
 
 
 launch_tile_kernel.updates_issued = 0
 launch_tile_kernel.updates_useful = 0
+launch_tile_kernel.blocks = 0
+launch_tile_kernel.edge_blocks = 0
 
 
 def stencil_cuda(

@@ -56,16 +56,36 @@ def _check(spec, device, seed, tile_rows=(0,)):
                 assert torch.equal(both[b], got), (spec.name, s, tile, b)
 
 
+# HEAT3D grids whose rows span the 16x8x32 tile's 32 cells, and 30 (not a
+# multiple of 4): every window overhangs both ends of its row, and the
+# blocks of the middle z and y tiles overhang nothing else.
+EDGE_ROWS_3D = [(40, 24, 32), (40, 24, 30)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("name", list(stencils.BENCHMARKS))
-def test_kernel_matches_plain_on_card(cuda_device, name):
+@pytest.mark.parametrize("name, boundary", [
+    *(pytest.param(n, None, id=n) for n in stencils.BENCHMARKS),
+    *(pytest.param("heat3d", b, id=f"heat3d-rows-{b}")
+      for b in ("zero", "constant", "replicate", "periodic")),
+])
+def test_kernel_matches_plain_on_card(cuda_device, name, boundary):
     """Edge blocks only (the small shape), then interior blocks at s = 8
-    too, on the default tile and a taller one."""
+    too, on the default tile and a taller one.  With a boundary: the
+    ``EDGE_ROWS_3D`` grids under that rule (s = 1, 2, 4 on 16x8x32, up to
+    8 on the default tile)."""
     three = name in stencils.BENCHMARKS_3D
-    for shape in ([(37, 6, 41), (37, 40, 41)] if three
-                  else [(70, 45), (200, 150)]):
-        _check(lower(stencils.get(name, shape=shape, iterations=4)).spec,
-               cuda_device, 11, tile_rows=(0, 16 if three else 64))
+    if boundary is not None:
+        shapes = EDGE_ROWS_3D
+    elif three:
+        shapes = [(37, 6, 41), (37, 40, 41)]
+    else:
+        shapes = [(70, 45), (200, 150)]
+    for shape in shapes:
+        spec = lower(stencils.get(name, shape=shape, iterations=4)).spec
+        if boundary is not None:
+            spec = dataclasses.replace(spec, boundary=Boundary(
+                boundary, 1.5 if boundary == "constant" else 0.0))
+        _check(spec, cuda_device, 11, tile_rows=(0, 16 if three else 64))
 
 
 @pytest.mark.gpu

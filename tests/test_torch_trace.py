@@ -5,15 +5,19 @@ With no profiler a span is one shared no-op and nothing accumulates.
 Under ``torch.profiler`` a CPU solve of the batched runner exports its
 ``sasa.*`` spans, nested, and :func:`trace.totals` counts the same.  The
 counters ``launch_tile_kernel.updates_issued`` / ``.updates_useful`` equal
-the trapezoid's closed form.  The ``gpu`` test holds the spans against
-the CUDA runtime's launch events on the card::
+the trapezoid's closed form, and ``.edge_blocks`` / ``.blocks`` a count
+over the tiles; a launch adds its batch times each.  The ``gpu`` test
+holds the spans against the CUDA runtime's launch events on the card::
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_trace.py
 """
 from __future__ import annotations
 
+import contextlib
+import itertools
 import json
 import math
+import types
 
 import numpy as np
 import pytest
@@ -111,6 +115,92 @@ def test_update_counts_are_the_trapezoids(name, shape, s, tile, ratio):
     assert plan.issued / plan.useful == pytest.approx(ratio, rel=1e-12)
 
 
+def brute_force_tiles(spec, s, tile):
+    """Tiles of one grid, and those whose window (the tile and h = s * r
+    cells on every side) leaves the grid on some axis, tile by tile."""
+    h = s * spec.radius
+    tiles = edge = 0
+    for tc in itertools.product(*(range(math.ceil(n / t))
+                                  for n, t in zip(spec.shape, tile))):
+        tiles += 1
+        edge += any(i * t - h < 0 or (i + 1) * t + h > n
+                    for i, t, n in zip(tc, tile, spec.shape))
+    return tiles, edge
+
+
+@pytest.mark.parametrize("name, shape, s, tile, tiles, edge", [
+    # the benchmark's cells: the 3-D tile spans the 32-cell row, so every
+    # window overhangs x = 0 and x = 31
+    ("heat3d", (9720, 32, 32), 2, (16, 8, 32), 2432, 2432),
+    ("heat3d", (9720, 32, 32), 1, (16, 8, 32), 2432, 2432),
+    ("jacobi2d", (9720, 1024), 8, (64, 64), 2432, 332),
+    ("jacobi2d", (9720, 1024), 1, (128, 64), 1216, 180),
+    ("jacobi2d", (256, 192), 1, (64, 64), 12, 10),
+    ("heat3d", (40, 40, 64), 1, (8, 8, 32), 50, 50),
+    ("heat3d", (40, 40, 96), 1, (8, 8, 32), 75, 66),
+])
+def test_edge_tiles_are_counted_tile_by_tile(name, shape, s, tile, tiles,
+                                             edge):
+    spec = stencils.get(name, shape=shape)
+    plan = stencil._launch_plan(spec, s, tile)
+    assert (plan.tiles, plan.edge_tiles) == (tiles, edge)
+    assert brute_force_tiles(spec, s, tile) == (tiles, edge)
+
+
+class _StubLib:
+    def launch(self, ins, maps, out, geom, stream):
+        return 0
+
+
+class _OnCard:
+    """A CPU tensor that says it lies on the card."""
+
+    device = torch.device("cuda")
+
+    def __init__(self, t):
+        self.t = t
+        self.dtype, self.shape = t.dtype, t.shape
+
+    def is_contiguous(self):
+        return True
+
+    def data_ptr(self):
+        return self.t.data_ptr()
+
+
+@pytest.mark.parametrize("name, shape, s, tile, batch", [
+    ("heat3d", (9720, 32, 32), 2, (16, 8, 32), 8),
+    ("jacobi2d", (9720, 1024), 1, (128, 64), 32),
+    ("jacobi2d", (256, 192), 1, (64, 64), 3),
+])
+def test_a_launch_adds_its_batch_times_the_plan_to_the_counters(
+        monkeypatch, name, shape, s, tile, batch):
+    """Without a card: the library and the CUDA calls stubbed, two
+    launches of ``batch`` grids add 2 x batch x the plan's counts."""
+    fake = types.SimpleNamespace(
+        int32=torch.int32,
+        empty=lambda shape, dtype, device: torch.empty(shape, dtype=dtype),
+        cuda=types.SimpleNamespace(
+            device=lambda d: contextlib.nullcontext(),
+            current_stream=lambda d: types.SimpleNamespace(cuda_stream=0)))
+    monkeypatch.setattr(stencil, "torch", fake)
+    monkeypatch.setattr(stencil.cuda_build, "get_kernel",
+                        lambda spec: _StubLib())
+    spec = stencils.get(name, shape=shape)
+    grids = _OnCard(torch.empty((batch,) + shape[:1] + (1,) * (len(shape) - 1))
+                    .expand((batch,) + shape))
+    f = stencil.launch_tile_kernel
+    names = ("updates_issued", "updates_useful", "blocks", "edge_blocks")
+    for n in names:    # no launch of this test outlives it
+        monkeypatch.setattr(f, n, 7)
+    for _ in range(2):
+        f(spec, [grids], s, tile)
+    plan = stencil._launch_plan(spec, s, tile)
+    assert [getattr(f, n) - 7 for n in names] == [
+        2 * batch * v for v in (plan.issued, plan.useful, plan.tiles,
+                                plan.edge_tiles)]
+
+
 @pytest.mark.gpu
 def test_each_launch_lies_in_its_enqueue_span(tmp_path):
     """On the card: every ``sasa_tile_kernel``'s runtime launch call lies
@@ -127,7 +217,7 @@ def test_each_launch_lies_in_its_enqueue_span(tmp_path):
         for n in spec.inputs})
     runner.dispatch(staged).event.synchronize()        # builds the kernel
     f = stencil.launch_tile_kernel
-    before = (f.updates_issued, f.updates_useful)
+    before = (f.updates_issued, f.updates_useful, f.blocks, f.edge_blocks)
 
     def solve():
         runner.dispatch(staged).event.synchronize()
@@ -136,8 +226,10 @@ def test_each_launch_lies_in_its_enqueue_span(tmp_path):
         torch.profiler.ProfilerActivity.CPU,
         torch.profiler.ProfilerActivity.CUDA])
     plan = stencil._launch_plan(spec, 2, tuple(runner.tile))
-    assert (f.updates_issued - before[0], f.updates_useful - before[1]) == (
-        3 * 2 * plan.issued, 3 * 2 * plan.useful)
+    assert (f.updates_issued - before[0], f.updates_useful - before[1],
+            f.blocks - before[2], f.edge_blocks - before[3]) == (
+        3 * 2 * plan.issued, 3 * 2 * plan.useful, 3 * 2 * plan.tiles,
+        3 * 2 * plan.edge_tiles)
     kernels = [e for e in events if e.get("cat") == "kernel"
                and e["name"].startswith("sasa_tile_kernel")]
     assert len(kernels) == 3

@@ -38,7 +38,7 @@ from repro_torch.core.spec import Boundary  # noqa: E402
 from repro_torch.kernels import cuda_build, ops, stencil  # noqa: E402
 from repro_torch.runtime import bucket_plan  # noqa: E402
 
-# (kernel, shape, s, tile); the last is the replicate bucket spec below
+# (kernel, shape, s, tile); the ninth is the replicate bucket spec below
 CASES = [
     ("jacobi2d", (4096, 4096), 1, (32, 32)),
     ("jacobi2d", (4096, 4096), 4, (32, 32)),
@@ -49,6 +49,11 @@ CASES = [
     ("sobel2d_replicate", (9720, 1024), 8, (32, 32)),
     ("heat3d_periodic", (9720, 32, 32), 4, (8, 8, 32)),
     ("jacobi2d_replicate_bucket", (10240, 1024), 16, (32, 32)),
+    # the benchmark's cells: every HEAT3D block an edge block, 13.65% of
+    # JACOBI2D's at s=8
+    ("heat3d", (9720, 32, 32), 2, (16, 8, 32)),
+    ("heat3d", (9720, 32, 32), 1, (16, 8, 32)),
+    ("jacobi2d", (9720, 1024), 8, (64, 64)),
 ]
 MAIN = [  # chip_smoke.py's main path, 16 iterations
     ("jacobi2d", (9720, 1024)), ("jacobi2d", (4096, 4096)),
