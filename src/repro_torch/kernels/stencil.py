@@ -28,8 +28,11 @@ and updates whole windows.
 A launch carries the spans ``sasa.launch.alloc`` and
 ``sasa.launch.enqueue`` (:mod:`repro_torch.trace`), counts its cell
 updates on ``launch_tile_kernel.updates_issued`` and ``.updates_useful``,
-and its thread blocks on ``.blocks``, of which ``.edge_blocks`` have a
-window that leaves the grid.
+its thread blocks on ``.blocks``, of which ``.edge_blocks`` have a
+window that leaves the grid, the cell updates of its ``local`` stages on
+``.local_updates_issued`` and ``.local_updates_useful``, and the cells of
+its floating-input windows on ``.window_cells``, of which ``.reach_cells``
+lie in the box the taps reach (:func:`tap_reach`).
 """
 from __future__ import annotations
 
@@ -40,7 +43,7 @@ from typing import Mapping, NamedTuple, Sequence
 import torch
 
 from repro_torch.core.platform import DEFAULT_GPU
-from repro_torch.core.spec import StencilSpec
+from repro_torch.core.spec import StencilSpec, refs_in
 from repro_torch.kernels import cuda_build
 from repro_torch.kernels.blockops import (
     _fold_index,
@@ -63,6 +66,22 @@ def stage_tails(spec: StencilSpec) -> list[int]:
     iteration: how far past the next stage's region it must reach."""
     radii = [st.radius for st in spec.stages]
     return [sum(radii[k + 1:]) for k in range(len(radii))]
+
+
+def tap_reach(spec: StencilSpec) -> list[tuple[int, int]]:
+    """Per axis, how far one iteration's taps reach below and above a
+    cell: the sum over stages of each stage's largest tap offset to that
+    side (0 where no tap of the stage lies that side).  ``s`` iterations
+    reach ``s`` times as far; the window's halo ``h = s * r`` covers the
+    larger side of the widest axis, so a stage whose taps are one-sided or
+    narrower on some axis stages cells no tap reads."""
+    reach = [[0, 0] for _ in range(spec.ndim)]
+    for st in spec.stages:
+        offsets = [ref.offsets for ref in refs_in(st.expr)]
+        for d, side in enumerate(reach):
+            side[0] += max([0] + [-int(o[d]) for o in offsets])
+            side[1] += max([0] + [int(o[d]) for o in offsets])
+    return [(lo, hi) for lo, hi in reach]
 
 
 def frame_width(spec: StencilSpec) -> int:
@@ -235,14 +254,20 @@ def _device_of(spec: StencilSpec, arrays: Mapping[str, torch.Tensor]):
 class LaunchPlan(NamedTuple):
     """One launch's geometry after the batch (grid, tile, halo, s, shared
     memory bytes), and per batch entry the cell updates it issues and the
-    useful ones, its tiles, and its edge tiles (those whose window leaves
-    the grid on some axis)."""
+    useful ones, its tiles, its edge tiles (those whose window leaves the
+    grid on some axis), the issued and useful updates of its ``local``
+    stages, and the cells of its floating-input windows and those of them
+    inside the box the taps reach."""
 
     geom: list[int]
     issued: int
     useful: int
     tiles: int
     edge_tiles: int
+    local_issued: int
+    local_useful: int
+    window_cells: int
+    reach_cells: int
 
 
 @functools.lru_cache(maxsize=256)
@@ -262,7 +287,12 @@ def _launch_plan(
 
     Edge tiles: the tiles whose window (the tile and ``h`` cells on every
     side) leaves the grid on some axis, which the kernel loads and updates
-    with the boundary rule; the others are its interior blocks."""
+    with the boundary rule; the others are its interior blocks.
+
+    Local updates: the same two counts over the ``local`` stages alone.
+    Window cells: every tile stages one window per floating input;
+    reach cells: of those, the cells inside the tile widened by ``s``
+    times :func:`tap_reach` on each side of each axis."""
     cuda_build.check_supported(spec)
     g = plan_blocks(spec, s, tile)
     smem = smem_bytes_estimate(spec, s, tile)
@@ -292,7 +322,17 @@ def _launch_plan(
         sum(1 for i in range(nt) if i * t >= h and (i + 1) * t + h <= n)
         for n, t, nt in zip(g["grid_shape"], g["tile"], g["n_tiles"])
     )
-    return LaunchPlan(geom, issued, useful, g["tiles"], g["tiles"] - inside)
+    local = [r for r in regions if not spec.stages[r.stage].is_output]
+    windows = g["tiles"] * len(cuda_build.float_inputs(spec))
+    reach = math.prod(
+        t + s * (lo + hi) for t, (lo, hi) in zip(g["tile"], tap_reach(spec))
+    )
+    return LaunchPlan(
+        geom, issued, useful, g["tiles"], g["tiles"] - inside,
+        g["tiles"] * sum(math.prod(r.extent) for r in local),
+        math.prod(g["grid_shape"]) * s * len(spec.local_stages),
+        windows * g["window_cells"], windows * reach,
+    )
 
 
 def launch_tile_kernel(
@@ -310,8 +350,11 @@ def launch_tile_kernel(
 
     Each launch adds its issued and useful cell updates
     (:class:`LaunchPlan`) to ``launch_tile_kernel.updates_issued`` and
-    ``.updates_useful``, and its blocks and edge blocks to ``.blocks`` and
-    ``.edge_blocks``."""
+    ``.updates_useful``, its blocks and edge blocks to ``.blocks`` and
+    ``.edge_blocks``, its local stages' issued and useful updates to
+    ``.local_updates_issued`` and ``.local_updates_useful``, and its
+    staged window cells and those the taps reach to ``.window_cells`` and
+    ``.reach_cells``."""
     plan = _launch_plan(spec, s, None if tile is None else tuple(tile))
     dtype = torch_dtype(spec.dtype)
     B = batched[0].shape[0]
@@ -350,6 +393,10 @@ def launch_tile_kernel(
     launch_tile_kernel.updates_useful += B * plan.useful
     launch_tile_kernel.blocks += B * plan.tiles
     launch_tile_kernel.edge_blocks += B * plan.edge_tiles
+    launch_tile_kernel.local_updates_issued += B * plan.local_issued
+    launch_tile_kernel.local_updates_useful += B * plan.local_useful
+    launch_tile_kernel.window_cells += B * plan.window_cells
+    launch_tile_kernel.reach_cells += B * plan.reach_cells
     return out
 
 
@@ -357,6 +404,10 @@ launch_tile_kernel.updates_issued = 0
 launch_tile_kernel.updates_useful = 0
 launch_tile_kernel.blocks = 0
 launch_tile_kernel.edge_blocks = 0
+launch_tile_kernel.local_updates_issued = 0
+launch_tile_kernel.local_updates_useful = 0
+launch_tile_kernel.window_cells = 0
+launch_tile_kernel.reach_cells = 0
 
 
 def stencil_cuda(

@@ -6,7 +6,8 @@ Under ``torch.profiler`` a CPU solve of the batched runner exports its
 ``sasa.*`` spans, nested, and :func:`trace.totals` counts the same.  The
 counters ``launch_tile_kernel.updates_issued`` / ``.updates_useful`` equal
 the trapezoid's closed form, and ``.edge_blocks`` / ``.blocks`` a count
-over the tiles; a launch adds its batch times each.  The ``gpu`` test
+over the tiles; a launch adds its batch times each of these and of the
+plan's local-stage and window counts.  The ``gpu`` test
 holds the spans against the CUDA runtime's launch events on the card::
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_trace.py
@@ -172,6 +173,7 @@ class _OnCard:
     ("heat3d", (9720, 32, 32), 2, (16, 8, 32), 8),
     ("jacobi2d", (9720, 1024), 1, (128, 64), 32),
     ("jacobi2d", (256, 192), 1, (64, 64), 3),
+    ("blur_jacobi2d", (9720, 1024), 2, (64, 64), 8),
 ])
 def test_a_launch_adds_its_batch_times_the_plan_to_the_counters(
         monkeypatch, name, shape, s, tile, batch):
@@ -190,7 +192,9 @@ def test_a_launch_adds_its_batch_times_the_plan_to_the_counters(
     grids = _OnCard(torch.empty((batch,) + shape[:1] + (1,) * (len(shape) - 1))
                     .expand((batch,) + shape))
     f = stencil.launch_tile_kernel
-    names = ("updates_issued", "updates_useful", "blocks", "edge_blocks")
+    names = ("updates_issued", "updates_useful", "blocks", "edge_blocks",
+             "local_updates_issued", "local_updates_useful", "window_cells",
+             "reach_cells")
     for n in names:    # no launch of this test outlives it
         monkeypatch.setattr(f, n, 7)
     for _ in range(2):
@@ -198,7 +202,9 @@ def test_a_launch_adds_its_batch_times_the_plan_to_the_counters(
     plan = stencil._launch_plan(spec, s, tile)
     assert [getattr(f, n) - 7 for n in names] == [
         2 * batch * v for v in (plan.issued, plan.useful, plan.tiles,
-                                plan.edge_tiles)]
+                                plan.edge_tiles, plan.local_issued,
+                                plan.local_useful, plan.window_cells,
+                                plan.reach_cells)]
 
 
 @pytest.mark.gpu
