@@ -14,15 +14,18 @@
 //                    per real axis: a bucketed replicate spec)
 //   SASA_N_LOCAL     number of `local` stages
 //   SASA_NDIM        number of real axes (the last SASA_NDIM of 3)
+//   SASA_STRIP       cells of a strip (2-D and 3-D; see "Stage walk")
 //   SASA_RADIUS      the spec's radius r (sum of its stage radii)
 //   SASA_FRAME       width of the zero frame around every window (the
 //                    largest stage radius for a streamed spec, else 0)
 //   SASA_BOUNDARY    0 zero, 1 constant, 2 replicate, 3 periodic
 //   SASA_BVALUE      the constant boundary value (float literal)
 //   SASA_STORE_BF16  1 when every array is bfloat16, else 0 (float32)
-// and "spec_body.cuh", included below, holds the spec's expressions:
-//   sasa_stage<k>    one __device__ specialisation per stage (locals, then
-//                    output), reading taps through sasa_tap
+// and "spec_body.cuh", included below, holds the spec's expressions, one
+// specialisation per stage (locals, then output):
+//   sasa_stage<k>    the stage at one cell, reading taps through sasa_tap
+//   sasa_strip<k>    2-D and 3-D: the stage at the SASA_STRIP cells of a
+//                    strip, its tap columns loaded into registers first
 //   SASA_STAGE_CALLS the statements running every stage of one iteration,
 //                    SASA_STAGE(k, tail_k, destination) for each k, where
 //                    tail_k is the sum of the radii of the stages after k
@@ -50,6 +53,29 @@
 // computes full windows): same taps, same expression, same order.  This is
 // the closed form of kernels/stencil.py::stage_regions, which the ranker
 // (core/model.py::predict_gpu) sums to price the work.
+//
+// Stage walk.  In 2-D and 3-D a stage's region is cut into strips: a
+// column at fixed coordinates on the inner axes (x in 2-D, y and x in
+// 3-D) and SASA_STRIP consecutive cells along the outermost real axis (y
+// in 2-D, z in 3-D).  The block's threads take (strip, column) pairs in
+// turn, adjacent lanes adjacent x, so a warp's shared loads are one
+// contiguous row.  For each distinct (buffer, inner-axis offset) of the
+// stage's taps, a whole strip loads the SASA_STRIP cells of that column
+// plus its tap span along the walk axis into registers, once, and each tap
+// of a cell reads a register: a JACOBI2D update loads 3 + 2 / SASA_STRIP
+// values where it has 5 taps, HEAT3D 5 + 2 / SASA_STRIP of 7.  The strip
+// is computed one operation at a time over all its cells (each cell's
+// operations in its own order), so every division's operands are ready
+// before the first division's branch; the results are then stored one
+// row stride apart.  The strip left at the region's end when its extent
+// is no multiple of SASA_STRIP is shorter, and runs its cells one by one
+// through sasa_stage.  An edge
+// block tests the inner coordinates of a column once and bounds the walk
+// coordinate before the strip.  Every cell of the region, and no other,
+// is computed with the same expression, taps and order of operations as
+// a cell-by-cell walk.  1-D specs walk the region cell by cell
+// (sasa_walk): a strip along x would put a warp's lanes SASA_STRIP floats
+// apart in shared memory.
 //
 // Boundary rule.  Interior blocks, whose whole window lies inside the
 // grid, load it as row copies with cp.async (16 bytes where rows are
@@ -97,8 +123,12 @@
 // tile once; keeping s iterations in shared memory divides the HBM traffic
 // per iteration by s, at the cost of the trapezoid's redundant updates
 // (for a T x T tile, sum_k (T + 2k r)^2 / (s T^2) per useful update).  At
-// the paper's sizes the kernel is bound by instructions per cell update,
-// not by bytes: the ranker prices the updates of the regions above.
+// s = 1 the kernel is bound by HBM bytes.  At depth it is bound by the
+// instructions it issues per cell update: shared loads, index arithmetic,
+// the edge test and the arithmetic of the stage.  The strip walk keeps the
+// first three to a fraction of a cell's taps (the stage's arithmetic and
+// its IEEE division stay); the ranker prices the updates of the regions
+// above.
 //
 // Numerics: every value lives in shared memory as float; each stage
 // computes in float with one rounding per operation (built with
@@ -175,6 +205,23 @@ template <int OZ, int OY, int OX>
 __device__ __forceinline__ float sasa_tap(const float* b, int c,
                                           const SasaGeom& g) {
   return b[c + OZ * g.st[0] + OY * g.st[1] + OX];
+}
+
+// The cell at a constant offset from the cell at flat index c.
+template <int OZ, int OY, int OX>
+__device__ __forceinline__ const float* sasa_at(const float* b, int c,
+                                                const SasaGeom& g) {
+  return b + c + OZ * g.st[0] + OY * g.st[1] + OX;
+}
+
+// Loads the L cells of a column, w floats apart from p, into registers.
+// No bounds check: the trapezoid keeps every tap inside the window, or
+// inside the zero frame (see the head comment).
+template <int L>
+__device__ __forceinline__ void sasa_column(float (&t)[L], const float* p,
+                                            int w) {
+#pragma unroll
+  for (int i = 0; i < L; ++i) t[i] = p[i * w];
 }
 
 // Flat shared-memory index of window cell (z, y, x).
@@ -261,6 +308,48 @@ __device__ __forceinline__ void sasa_for_region(const SasaBox& b,
             });
 }
 
+// Calls f(first, y, x, c) for every strip of a box this thread owns: the
+// column at box coordinates (y, x) on the inner axes (y is 0 in 2-D) and
+// the cells from `first` on along the walk axis (2-D: y, 3-D: z), the
+// first at flat index c.  The (strip, column) pairs are walked as one
+// flat index over the block's threads, x fastest, so adjacent lanes take
+// adjacent columns.
+template <typename F>
+__device__ __forceinline__ void sasa_for_strips(const SasaBox& b,
+                                                const SasaGeom& g, F f) {
+  constexpr int W = 3 - SASA_NDIM;
+  const int ex = b.ext[2], ey = SASA_NDIM == 3 ? b.ext[1] : 1;
+  const int total = (b.ext[W] + SASA_STRIP - 1) / SASA_STRIP * ey * ex;
+  int i = threadIdx.x;
+  if (i >= total) return;
+  const int c0 = sasa_cell(g, b.lo[0], b.lo[1], b.lo[2]);
+  const int step = SASA_STRIP * g.st[W], st1 = g.st[1];
+  const int dx = SASA_THREADS % ex, dq = SASA_THREADS / ex;
+  int x = i % ex;
+  const int q = i / ex;
+  int y = q % ey;
+  int k = q / ey;
+#pragma unroll 1
+  for (; i < total; i += SASA_THREADS) {
+    f(k * SASA_STRIP, y, x, c0 + k * step + y * st1 + x);
+    x += dx;
+    int dy = dq;
+    if (x >= ex) {
+      x -= ex;
+      ++dy;
+    }
+    if (SASA_NDIM == 3) {
+      y += dy;
+      while (y >= ey) {
+        y -= ey;
+        ++k;
+      }
+    } else {
+      k += dy;
+    }
+  }
+}
+
 // The whole window as a box.
 __device__ __forceinline__ SasaBox sasa_window(const SasaGeom& g) {
   SasaBox b;
@@ -290,6 +379,8 @@ __device__ __forceinline__ SasaBox sasa_region(const SasaGeom& g,
 template <int K>
 __device__ float sasa_stage(const float* const* env, int c,
                             const SasaGeom& g);
+template <int K>
+struct sasa_strip;
 #include "spec_body.cuh"
 
 // Re-impose the boundary rule on the out-of-grid cells of a box of one
@@ -367,6 +458,7 @@ __device__ __forceinline__ void sasa_run_stage(float* dst,
                                                const SasaGeom& g,
                                                const int* lo,
                                                const int* hi) {
+#if SASA_NDIM == 1
   sasa_for_region(box, g, [&](int z, int y, int x, int c) {
     float v;
     if (!INTERIOR && SASA_BOUNDARY <= 1 &&
@@ -377,6 +469,55 @@ __device__ __forceinline__ void sasa_run_stage(float* dst,
     }
     dst[c] = v;
   });
+#else
+  // The strip walk (see "Stage walk").  A whole strip runs sasa_strip,
+  // its tap columns in registers; the short strip at the region's end
+  // runs its cells one by one.
+  constexpr int W = 3 - SASA_NDIM;
+  const int w = g.st[W], ext = box.ext[W];
+  sasa_for_strips(box, g, [&](int first, int y, int x, int c) {
+    // Zero/constant edge blocks: the column's inner coordinates in the
+    // grid, and the strip's cells [rlo, rhi) inside it on the walk axis.
+    bool col_in = true;
+    int rlo = 0, rhi = SASA_STRIP;
+    if (!INTERIOR && SASA_BOUNDARY <= 1) {
+      const int gx = org[2] + box.lo[2] + x;
+      col_in = gx >= 0 && gx < g.n[2];
+      if (SASA_NDIM == 3) {
+        const int gy = org[1] + box.lo[1] + y;
+        col_in = col_in && gy >= 0 && gy < g.n[1];
+      }
+      const int gw = org[W] + box.lo[W] + first;
+      rlo = -gw;
+      rhi = g.n[W] - gw;
+    }
+    const float bval = (SASA_BOUNDARY == 0) ? 0.0f : SASA_BVALUE;
+    if (ext - first >= SASA_STRIP) {
+      float v[SASA_STRIP];
+      sasa_strip<K>::run(env, c, w, g, v);
+      if (col_in && rlo <= 0 && rhi >= SASA_STRIP) {
+#pragma unroll
+        for (int r = 0; r < SASA_STRIP; ++r)
+          dst[c + r * w] = sasa_round(v[r], (sasa_store_t*)nullptr);
+      } else {
+#pragma unroll
+        for (int r = 0; r < SASA_STRIP; ++r)
+          dst[c + r * w] = (col_in && r >= rlo && r < rhi)
+                               ? sasa_round(v[r], (sasa_store_t*)nullptr)
+                               : bval;
+      }
+    } else {
+#pragma unroll 1
+      for (int r = 0; r < ext - first; ++r) {
+        const int cr = c + r * w;
+        dst[cr] = (col_in && r >= rlo && r < rhi)
+                      ? sasa_round(sasa_stage<K>(env, cr, g),
+                                   (sasa_store_t*)nullptr)
+                      : bval;
+      }
+    }
+  });
+#endif
   __syncthreads();
   sasa_streamed_fixup(dst, 1, 0, box, lo, hi, g);
   if (!INTERIOR && SASA_BOUNDARY == 2) sasa_replicate_fixup(dst, box, org, g);

@@ -3,10 +3,17 @@
 The tile kernel is hand-written in ``csrc/stencil_tile.cuh``; only the
 expressions depend on the spec.  :func:`generate` turns every stage of a
 lowered :class:`~repro_torch.core.spec.StencilSpec` (``Let``/``Var``/
-``BinOp``/``Call``/``Neg``/``Num``/``Ref``) into a ``sasa_stage<k>``
-device function in ``spec_body.cuh`` and writes a translation unit that
-sets the spec's constants and includes the template.  Nothing else goes
-into a build.
+``BinOp``/``Call``/``Neg``/``Num``/``Ref``) into device code in
+``spec_body.cuh`` and writes a translation unit that sets the spec's
+constants and includes the template.  Nothing else goes into a build.
+
+Every stage is a ``sasa_stage<k>`` function of one cell, reading each tap
+from shared memory.  A 2-D or 3-D stage is also a ``sasa_strip<k>`` that
+computes a strip of ``SASA_STRIP`` cells along the outermost real axis
+(``repro_torch.kernels.stencil.STRIP_CELLS``): it loads each of the
+stage's columns (:func:`tap_columns`) once into registers, and each tap
+of a cell reads a register.  The expression, its taps and the order of
+its operations are the same in both forms.
 
 Build (route (b): a plain C entry point loaded with ``ctypes``)::
 
@@ -43,6 +50,7 @@ import subprocess
 import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 
@@ -56,6 +64,7 @@ from repro_torch.core.spec import (
     Ref,
     StencilSpec,
     Var,
+    refs_in,
 )
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -119,18 +128,87 @@ def float_literal(value: float) -> str:
     return f"({f.hex()}f)"
 
 
+class TapColumn(NamedTuple):
+    """The taps of one stage on one array at one offset on the inner axes
+    (every real axis but the first): ``inner`` is the offset with the
+    first axis's component 0, ``lo``/``hi`` the least and greatest offset
+    on the first axis.  A strip of ``n`` cells reads ``n + hi - lo`` cells
+    of it."""
+
+    name: str
+    inner: tuple[int, ...]
+    lo: int
+    hi: int
+
+
+def tap_columns(expr: Expr) -> list[TapColumn]:
+    """The distinct (array, inner offset) columns of a stage's taps, in
+    the order of their first tap."""
+    span: dict[tuple[str, tuple[int, ...]], list[int]] = {}
+    for ref in refs_in(expr):
+        offs = tuple(int(o) for o in ref.offsets)
+        key = (ref.name, (0,) + offs[1:])
+        lo_hi = span.setdefault(key, [offs[0], offs[0]])
+        lo_hi[0] = min(lo_hi[0], offs[0])
+        lo_hi[1] = max(lo_hi[1], offs[0])
+    return [TapColumn(n, inner, lo, hi) for (n, inner), (lo, hi) in span.items()]
+
+
+def _offsets3(offsets) -> tuple[int, int, int]:
+    """A tap's offsets on the kernel's three axes (leading axes 0)."""
+    return (0,) * (3 - len(offsets)) + tuple(int(o) for o in offsets)
+
+
 class _Emitter:
-    def __init__(self, spec: StencilSpec, buffers: dict[str, int]):
-        self.ndim = spec.ndim
+    """One stage's expression as C++.  At one cell (``sasa_stage``) a tap
+    reads shared memory through ``sasa_tap`` and a ``Let`` binding is a
+    local.  Over a strip (``columns`` given, ``sasa_strip``) a tap of cell
+    ``r`` reads register ``t<j>[r + offset - lo]`` of its column ``j``,
+    and each operation, in the order a cell evaluates them, is a register
+    array ``n<i>`` computed for every cell of the strip before the next
+    operation: each cell's operations and operands are the same, only the
+    interleaving of the cells differs."""
+
+    def __init__(self, buffers: dict[str, int], columns=None):
         self.buffers = buffers
+        self.columns = None if columns is None else {
+            (col.name, col.inner): (j, col.lo) for j, col in enumerate(columns)
+        }
         self.lines: list[str] = []
         self.n_vars = 0
+
+    def op(self, value: str) -> str:
+        """An operation's result: inline at one cell, an array over a strip."""
+        if self.columns is None:
+            return value
+        name = f"n{self.n_vars}"
+        self.n_vars += 1
+        self.lines += [
+            f"    float {name}[SASA_STRIP];",
+            "#pragma unroll",
+            f"    for (int r = 0; r < SASA_STRIP; ++r) {name}[r] = {value};",
+        ]
+        return f"{name}[r]"
+
+    def bind(self, value: str) -> str:
+        """A ``Let`` binding: a local at one cell; over a strip the value is
+        already an array or a leaf."""
+        if self.columns is not None:
+            return value
+        var = f"v{self.n_vars}"
+        self.n_vars += 1
+        self.lines.append(f"  const float {var} = {value};")
+        return var
 
     def expr(self, e: Expr, env: dict[str, str]) -> str:
         if isinstance(e, Num):
             return float_literal(e.value)
         if isinstance(e, Ref):
-            offs = (0,) * (3 - self.ndim) + tuple(int(o) for o in e.offsets)
+            if self.columns is not None:
+                offs = tuple(int(o) for o in e.offsets)
+                j, lo = self.columns[(e.name, (0,) + offs[1:])]
+                return f"t{j}[r + {offs[0] - lo}]"
+            offs = _offsets3(e.offsets)
             return (
                 f"sasa_tap<{offs[0]}, {offs[1]}, {offs[2]}>"
                 f"(env[{self.buffers[e.name]}], c, g)"
@@ -140,33 +218,75 @@ class _Emitter:
         if isinstance(e, Let):
             env = dict(env)
             for name, bound in e.bindings:
-                value = self.expr(bound, env)
-                var = f"v{self.n_vars}"
-                self.n_vars += 1
-                self.lines.append(f"  const float {var} = {value};")
-                env[name] = var
+                env[name] = self.bind(self.expr(bound, env))
             return self.expr(e.body, env)
         if isinstance(e, Neg):
-            return f"(-{self.expr(e.arg, env)})"
+            return self.op(f"(-{self.expr(e.arg, env)})")
         if isinstance(e, BinOp):
             if e.op not in "+-*/":
                 raise ValueError(f"unknown op {e.op!r}")
-            return f"({self.expr(e.lhs, env)} {e.op} {self.expr(e.rhs, env)})"
+            lhs = self.expr(e.lhs, env)
+            rhs = self.expr(e.rhs, env)
+            return self.op(f"({lhs} {e.op} {rhs})")
         if isinstance(e, Call):
             args = [self.expr(a, env) for a in e.args]
             if e.fn == "abs":
-                return f"fabsf({args[0]})"
+                return self.op(f"fabsf({args[0]})")
             acc = args[0]
             for a in args[1:]:
-                acc = f"sasa_{e.fn}({acc}, {a})"
+                acc = self.op(f"sasa_{e.fn}({acc}, {a})")
             return acc
         raise TypeError(f"cannot emit expression node {e!r}")
+
+
+def _flat_stage(k: int, expr: Expr, buffers: dict[str, int]) -> list[str]:
+    """``sasa_stage<k>``: the stage at the cell of flat index ``c``."""
+    em = _Emitter(buffers)
+    result = em.expr(expr, {})
+    return [
+        "template <>",
+        f"__device__ __forceinline__ float sasa_stage<{k}>(",
+        "    const float* const* env, int c, const SasaGeom& g) {",
+        *em.lines,
+        f"  return {result};",
+        "}",
+    ]
+
+
+def _strip_stage(k: int, expr: Expr, buffers: dict[str, int]) -> list[str]:
+    """``sasa_strip<k>::run``: the stage at the ``SASA_STRIP`` cells of a
+    strip from the cell of flat index ``c``, ``w`` floats apart, into
+    ``v``, each tap column loaded once."""
+    columns = tap_columns(expr)
+    em = _Emitter(buffers, columns)
+    result = em.expr(expr, {})
+    loads = []
+    for j, col in enumerate(columns):
+        o = _offsets3((col.lo,) + col.inner[1:])
+        loads += [
+            f"    float t{j}[SASA_STRIP + {col.hi - col.lo}];",
+            f"    sasa_column(t{j}, sasa_at<{o[0]}, {o[1]}, {o[2]}>"
+            f"(env[{buffers[col.name]}], c, g), w);",
+        ]
+    return [
+        "template <>",
+        f"struct sasa_strip<{k}> {{",
+        "  static __device__ __forceinline__ void run(",
+        "      const float* const* env, int c, int w, const SasaGeom& g,",
+        "      float (&v)[SASA_STRIP]) {",
+        *loads,
+        *em.lines,
+        "#pragma unroll",
+        f"    for (int r = 0; r < SASA_STRIP; ++r) v[r] = {result};",
+        "  }",
+        "};",
+    ]
 
 
 def generate(spec: StencilSpec) -> tuple[str, str]:
     """``(kernel.cu, spec_body.cuh)`` sources for a lowered spec."""
     # the tile geometry lives with the kernel's wrapper, which imports this
-    from repro_torch.kernels.stencil import frame_width, stage_tails
+    from repro_torch.kernels.stencil import STRIP_CELLS, frame_width, stage_tails
 
     check_supported(spec)
     names = float_inputs(spec)
@@ -180,16 +300,9 @@ def generate(spec: StencilSpec) -> tuple[str, str]:
     calls = []
     tails = stage_tails(spec)
     for k, st in enumerate(spec.stages):
-        em = _Emitter(spec, buffers)
-        result = em.expr(st.expr, {})
-        body += [
-            "template <>",
-            f"__device__ __forceinline__ float sasa_stage<{k}>(",
-            "    const float* const* env, int c, const SasaGeom& g) {",
-            *em.lines,
-            f"  return {result};",
-            "}",
-        ]
+        body += _flat_stage(k, st.expr, buffers)
+        if spec.ndim > 1:
+            body += _strip_stage(k, st.expr, buffers)
         dst = "nxt" if st.is_output else f"buf[SASA_N_IN + {k}]"
         calls.append(f"SASA_STAGE({k}, {tails[k]}, {dst})")
     body.append("#define SASA_STAGE_CALLS " + " ".join(calls))
@@ -201,6 +314,7 @@ def generate(spec: StencilSpec) -> tuple[str, str]:
         f"#define SASA_N_HALO {len(spec.halo_index_inputs)}",
         f"#define SASA_N_LOCAL {len(locals_)}",
         f"#define SASA_NDIM {spec.ndim}",
+        f"#define SASA_STRIP {STRIP_CELLS[spec.ndim]}",
         f"#define SASA_RADIUS {spec.radius}",
         f"#define SASA_FRAME {frame_width(spec)}",
         f"#define SASA_BOUNDARY {BOUNDARY_CODES[b.kind]}",

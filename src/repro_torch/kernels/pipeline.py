@@ -9,9 +9,13 @@ equal to K1 per entry.  The TPU pipeline's double-buffered HBM->VMEM copy
 of the next tile is scheduling, not semantics; its Hopper counterpart
 (``cp.async``/TMA prefetch) is later work.
 
-What bounds it on this card: HBM bytes, as K1 — per round every entry's
-input windows are read and its grid written once (8 x 40 MB for a batch of
-eight 9720x1024 f32 grids, over the 50 MB L2).
+What bounds it on this card: at depth, instruction issue, as K1 — the
+shared loads, index arithmetic and arithmetic of every cell update the
+trapezoid issues (the strip walk of ``csrc/stencil_tile.cuh`` keeps the
+first two to a fraction of a cell's taps); HBM bytes only at ``s = 1``,
+where per round every entry's input windows are read and its grid
+written once (8 x 40 MB for a batch of eight 9720x1024 f32 grids, over
+the 50 MB L2).
 
 :func:`stencil_cuda_batched` launches the kernel for CUDA tensors (counted
 on ``stencil_cuda_batched.launches``); CPU tensors run the plain version

@@ -16,7 +16,10 @@ What bounds it on this card: instructions per cell update, then HBM
 bytes.  A round reads every input window and writes the grid once (a
 9720x1024 f32 grid is 40 MB, a 4096x4096 one 64 MB); fusing ``s``
 iterations divides the rounds, hence the traffic, by ``s`` while the
-trapezoid's redundant updates grow with ``h / T`` per axis.
+trapezoid's redundant updates grow with ``h / T`` per axis.  In 2-D and
+3-D a thread computes a strip of ``STRIP_CELLS`` cells along the
+outermost real axis and keeps each column of a stage's taps in registers
+across it, so an update issues fewer shared loads than it has taps.
 
 :func:`stencil_cuda` launches the kernel for a CUDA tensor and counts the
 launch on ``stencil_cuda.launches``; for a CPU tensor it runs the plain
@@ -32,7 +35,8 @@ its thread blocks on ``.blocks``, of which ``.edge_blocks`` have a
 window that leaves the grid, the cell updates of its ``local`` stages on
 ``.local_updates_issued`` and ``.local_updates_useful``, and the cells of
 its floating-input windows on ``.window_cells``, of which ``.reach_cells``
-lie in the box the taps reach (:func:`tap_reach`).
+lie in the box the taps reach (:func:`tap_reach`), and the shared-memory
+loads of its stages' taps on ``.smem_tap_loads`` (:func:`tap_loads`).
 """
 from __future__ import annotations
 
@@ -54,6 +58,10 @@ from repro_torch.trace import span
 
 # Interior tile per number of axes; the row extent can be overridden.
 DEFAULT_TILES = {1: (256,), 2: (32, 64), 3: (8, 8, 32)}
+# Cells a thread computes in one strip along the outermost real axis, per
+# number of axes (the 1-D kernel walks single cells): the card's best of
+# 4, 6, 8 and 12 at the benchmark's deep picks (PERF.md section 5).
+STRIP_CELLS = {1: 1, 2: 6, 3: 8}
 
 
 def default_tile(ndim: int, tile_rows: int = 0) -> tuple[int, ...]:
@@ -91,6 +99,31 @@ def frame_width(spec: StencilSpec) -> int:
     if not spec.halo_index_inputs:
         return 0
     return max(st.radius for st in spec.stages)
+
+
+def tap_loads(spec: StencilSpec, regions: Sequence["StageRegion"]) -> int:
+    """Shared-memory loads of taps one thread block issues over
+    ``regions``.  In 2-D and 3-D each region is cut into strips of
+    ``STRIP_CELLS`` cells along its first axis, one strip per column
+    of the other axes: a whole strip loads ``STRIP_CELLS + hi - lo``
+    cells of each of the stage's tap columns
+    (:func:`cuda_build.tap_columns`), and the shorter strip at the
+    region's end, like every cell of a 1-D region, loads each distinct
+    tap of its stage once per cell."""
+    total = 0
+    for reg in regions:
+        expr = spec.stages[reg.stage].expr
+        taps = len({(ref.name, tuple(ref.offsets)) for ref in refs_in(expr)})
+        if spec.ndim == 1:
+            total += taps * reg.extent[0]
+            continue
+        strip = STRIP_CELLS[spec.ndim]
+        whole, short = divmod(reg.extent[0], strip)
+        total += math.prod(reg.extent[1:]) * (
+            whole * sum(strip + col.hi - col.lo
+                        for col in cuda_build.tap_columns(expr))
+            + short * taps)
+    return total
 
 
 class StageRegion(NamedTuple):
@@ -256,8 +289,8 @@ class LaunchPlan(NamedTuple):
     memory bytes), and per batch entry the cell updates it issues and the
     useful ones, its tiles, its edge tiles (those whose window leaves the
     grid on some axis), the issued and useful updates of its ``local``
-    stages, and the cells of its floating-input windows and those of them
-    inside the box the taps reach."""
+    stages, the cells of its floating-input windows and those of them
+    inside the box the taps reach, and its shared-memory tap loads."""
 
     geom: list[int]
     issued: int
@@ -268,6 +301,7 @@ class LaunchPlan(NamedTuple):
     local_useful: int
     window_cells: int
     reach_cells: int
+    tap_loads: int
 
 
 @functools.lru_cache(maxsize=256)
@@ -292,7 +326,8 @@ def _launch_plan(
     Local updates: the same two counts over the ``local`` stages alone.
     Window cells: every tile stages one window per floating input;
     reach cells: of those, the cells inside the tile widened by ``s``
-    times :func:`tap_reach` on each side of each axis."""
+    times :func:`tap_reach` on each side of each axis.  Tap loads: the
+    tile count times :func:`tap_loads` of the regions."""
     cuda_build.check_supported(spec)
     g = plan_blocks(spec, s, tile)
     smem = smem_bytes_estimate(spec, s, tile)
@@ -332,6 +367,7 @@ def _launch_plan(
         g["tiles"] * sum(math.prod(r.extent) for r in local),
         math.prod(g["grid_shape"]) * s * len(spec.local_stages),
         windows * g["window_cells"], windows * reach,
+        g["tiles"] * tap_loads(spec, regions),
     )
 
 
@@ -354,7 +390,8 @@ def launch_tile_kernel(
     ``.edge_blocks``, its local stages' issued and useful updates to
     ``.local_updates_issued`` and ``.local_updates_useful``, and its
     staged window cells and those the taps reach to ``.window_cells`` and
-    ``.reach_cells``."""
+    ``.reach_cells``, and its stages' shared-memory tap loads to
+    ``.smem_tap_loads``."""
     plan = _launch_plan(spec, s, None if tile is None else tuple(tile))
     dtype = torch_dtype(spec.dtype)
     B = batched[0].shape[0]
@@ -397,6 +434,7 @@ def launch_tile_kernel(
     launch_tile_kernel.local_updates_useful += B * plan.local_useful
     launch_tile_kernel.window_cells += B * plan.window_cells
     launch_tile_kernel.reach_cells += B * plan.reach_cells
+    launch_tile_kernel.smem_tap_loads += B * plan.tap_loads
     return out
 
 
@@ -408,6 +446,7 @@ launch_tile_kernel.local_updates_issued = 0
 launch_tile_kernel.local_updates_useful = 0
 launch_tile_kernel.window_cells = 0
 launch_tile_kernel.reach_cells = 0
+launch_tile_kernel.smem_tap_loads = 0
 
 
 def stencil_cuda(

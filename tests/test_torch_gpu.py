@@ -15,10 +15,11 @@ import pytest
 import torch
 
 from repro_torch.configs import stencils
+from repro_torch.core import dsl
 from repro_torch.core.ir import lower
 from repro_torch.core.platform import DEFAULT_GPU
 from repro_torch.core.spec import Boundary
-from repro_torch.kernels import ops, pipeline, stencil
+from repro_torch.kernels import cuda_build, ops, pipeline, stencil
 from repro_torch.runtime.bucketing import bucket_plan
 
 RTOL = {"float32": 2e-4, "bfloat16": 2e-2}   # tests/test_kernels.py::tol
@@ -88,6 +89,96 @@ def test_kernel_matches_plain_on_card(cuda_device, name, boundary):
         _check(spec, cuda_device, 11, tile_rows=(0, 16 if three else 64))
 
 
+BOUNDARIES = ("zero", "constant", "replicate", "periodic")
+# Every stock kernel under its own rule, and the benchmark's three under
+# each rule; bfloat16 JACOBI2D and HEAT3D.
+STRIP_CASES = [
+    *((n, None, "float32") for n in stencils.BENCHMARKS),
+    *((n, b, "float32") for n in ("jacobi2d", "blur_jacobi2d", "heat3d")
+      for b in BOUNDARIES),
+    ("jacobi2d", None, "bfloat16"), ("heat3d", None, "bfloat16"),
+]
+
+
+def _strip_spec(name, boundary, dtype):
+    three = name in stencils.BENCHMARKS_3D
+    spec = lower(stencils.get(name, shape=(37, 20, 41) if three else (70, 45),
+                              iterations=4)).spec
+    if boundary is not None:
+        spec = dataclasses.replace(spec, boundary=Boundary(
+            boundary, 1.5 if boundary == "constant" else 0.0))
+    if dtype != "float32":
+        spec = dataclasses.replace(
+            spec,
+            inputs={n: (dtype, sh) for n, (_, sh) in spec.inputs.items()},
+            stages=tuple(dataclasses.replace(st, dtype=dtype)
+                         for st in spec.stages),
+        )
+    return spec
+
+
+@pytest.fixture(scope="module")
+def strip_kernels():
+    """Builds every kernel of ``STRIP_CASES`` at once (nvcc in parallel)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the tile kernel has no CPU mode")
+    cuda_build.build_many([_strip_spec(*c) for c in STRIP_CASES])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name, boundary, dtype", STRIP_CASES,
+                         ids=["-".join(str(x) for x in c) for c in STRIP_CASES])
+def test_strip_walk_is_bitwise_the_plain_version_on_card(
+        cuda_device, strip_kernels, name, boundary, dtype):
+    """K2 against the plain version (``blockops.fused_iterations_on_block``
+    on the CPU), bitwise, at s = 1, 2, 8.  2-D on 13x64 tiles (walk
+    extents 13 + 2e: a short strip in every column) and the default tile;
+    3-D on 5x8x32 tiles (one short strip a column, edge blocks on every
+    axis) and the default tile; a grid of 70x45 or 37x20x41 leaves partial
+    tiles at every far edge."""
+    spec = _strip_spec(name, boundary, dtype)
+    rng = np.random.default_rng(16)
+    arrays = {
+        n: torch.from_numpy(rng.standard_normal((2,) + tuple(spec.shape))
+                            .astype(np.float32)).to(getattr(torch, dtype))
+        for n in spec.inputs
+    }
+    on_card = {n: a.to(cuda_device) for n, a in arrays.items()}
+    three = spec.ndim == 3
+    for tile in ((5, 8, 32) if three else (13, 64),
+                 stencil.default_tile(spec.ndim)):
+        for s in (1, 2, 8):
+            if stencil.smem_bytes_estimate(spec, s, tile) > DEFAULT_GPU.smem_per_block:
+                continue
+            got = pipeline.stencil_cuda_batched(spec, on_card, s, tile).cpu()
+            want = stencil.tiled_round(spec, arrays, s, tile)
+            assert torch.equal(got, want), (spec.name, boundary, s, tile)
+
+
+# A 1-D spec: the kernel walks its stages cell by cell.
+LINE5 = """kernel: LINE5
+iteration: 4
+input float: in_1(300)
+output float: out_1(0) = (in_1(-2) + in_1(-1) + in_1(0) + in_1(1) + in_1(2)) / 5
+"""
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("boundary", BOUNDARIES)
+def test_a_1d_spec_takes_the_flat_walk_on_card(cuda_device, boundary):
+    spec = dataclasses.replace(lower(dsl.parse(LINE5)).spec, boundary=Boundary(
+        boundary, 1.5 if boundary == "constant" else 0.0))
+    rng = np.random.default_rng(17)
+    arrays = {"in_1": torch.from_numpy(
+        rng.standard_normal((2, 300)).astype(np.float32))}
+    on_card = {n: a.to(cuda_device) for n, a in arrays.items()}
+    for tile in ((64,), (256,)):
+        for s in (1, 2, 8):
+            got = pipeline.stencil_cuda_batched(spec, on_card, s, tile).cpu()
+            want = stencil.tiled_round(spec, arrays, s, tile)
+            assert torch.equal(got, want), (boundary, s, tile)
+
+
 @pytest.mark.gpu
 def test_constant_boundary_and_bf16_on_card(cuda_device):
     spec = lower(stencils.jacobi2d(shape=(50, 66))).spec
@@ -126,7 +217,8 @@ def test_streamed_kernels_match_plain_on_card(cuda_device, kind):
     mspec = plan.mspec
     t = ops.to_device(mspec, {n: np.stack([x[n] for x in entries])
                               for n in mspec.inputs}, cuda_device)
-    for tile in (None, (16, 16)):     # (16, 16): tiles wholly in padding
+    # (16, 16): tiles wholly in padding; (13, 20): short strips too
+    for tile in (None, (16, 16), (13, 20)):
         for s in (1, 2, 4, 8):
             both = pipeline.stencil_cuda_batched(mspec, t, s, tile)
             for b in range(3):

@@ -18,6 +18,8 @@ checked, and the shared-memory estimate that sizes them.
 from __future__ import annotations
 
 import dataclasses
+import itertools
+import math
 
 import jax.numpy as jnp
 import numpy as np
@@ -287,6 +289,14 @@ def test_cuda_kernel_takes_bucket_specs(kind):
     assert cuda_build.float_inputs(plan.mspec) == list(plan.mspec.inputs)[:floats]
 
 
+# A 1-D spec: the kernel walks it cell by cell.
+ONE_D = """kernel: LINE5
+iteration: 4
+input float: in_1(300)
+output float: out_1(0) = (in_1(-2) + in_1(-1) + in_1(0) + in_1(1) + in_1(2)) / 5
+"""
+
+
 def test_generated_source_is_exact_and_structural():
     spec = lower(_port(ref_stencils.get("hotspot", shape=(64, 64)))).spec
     tu, body = cuda_build.generate(spec)
@@ -296,8 +306,21 @@ def test_generated_source_is_exact_and_structural():
     other = lower(_port(ref_stencils.get("hotspot", shape=(9720, 1024),
                                          iterations=9))).spec
     assert cuda_build.kernel_key(spec) == cuda_build.kernel_key(other)
-    # a tap is the cell's flat index plus a constant offset; the stage
-    # call carries its tail of the trapezoid (stage_regions at s = 1)
+    # 2-D: a strip of SASA_STRIP cells loads each column of taps (array,
+    # inner offset) once, from the cell's flat index plus a constant
+    # offset (the column's first row), into registers; a tap of cell r is
+    # a register, and each operation runs over the strip's cells before
+    # the next.  The stage call carries its tail of the trapezoid
+    # (stage_regions at s = 1).
+    assert "#define SASA_NDIM 2\n#define SASA_STRIP 6\n" in tu
+    assert "struct sasa_strip<0> {" in body
+    assert ("float t0[SASA_STRIP + 2];\n"
+            "    sasa_column(t0, sasa_at<0, -1, 0>(env[1], c, g), w);") in body
+    assert "sasa_column(t3, sasa_at<0, 0, 1>(env[1], c, g), w);" in body
+    assert ("for (int r = 0; r < SASA_STRIP; ++r) n0[r] = "
+            "(t0[r + 0] + t0[r + 2]);") in body
+    assert "n1[r] = (n0[r] - t0[r + 1]);" in body
+    # the short strip at a region's end takes the stage cell by cell
     assert "sasa_tap<0, -1, 0>(env[1], c, g)" in body
     assert "#define SASA_STAGE_CALLS SASA_STAGE(0, 0, nxt)" in body
     assert "#define SASA_RADIUS 1\n" in tu and "#define SASA_FRAME 0\n" in tu
@@ -305,12 +328,23 @@ def test_generated_source_is_exact_and_structural():
     assert [r.dilation for r in stencil.stage_regions(blur, 1)] == [1, 0]
     assert "SASA_STAGE(0, 1, buf[SASA_N_IN + 0]) SASA_STAGE(1, 0, nxt)" in \
         cuda_build.generate(blur)[1]
-    # and the template's tap has no bounds check
+    # 1-D keeps the cell-by-cell stage: a tap is the cell's flat index plus
+    # a constant offset
+    line = lower(pt_dsl.parse(ONE_D)).spec
+    tu1, body1 = cuda_build.generate(line)
+    assert "#define SASA_STRIP 1\n" in tu1 and "sasa_strip" not in body1
+    assert "sasa_tap<0, 0, -1>(env[0], c, g)" in body1
+    # and neither the template's tap nor its column load has a bounds
+    # check
     src = (cuda_build.CSRC / "stencil_tile.cuh").read_text()
     tap = src[src.index("sasa_tap(const float* b"):]
     tap = tap[:tap.index("}")]
     assert "return b[c + OZ * g.st[0] + OY * g.st[1] + OX];" in tap
     assert "if" not in tap and "<" not in tap.split(")", 1)[1]
+    col = src[src.index("sasa_column(float (&t)[L]"):]
+    col = col[col.index("{") + 1:col.index("\n}")]
+    assert "for (int i = 0; i < L; ++i) t[i] = p[i * w];" in col
+    assert "if" not in col and col.count("<") == 1
 
 
 # --------------------------------------------------------------------------
@@ -468,6 +502,64 @@ def test_stage_regions_shrink_to_the_tile():
             assert regs[-1].extent == tuple(min(32, n) for n in spec.shape)
             for a, b in zip(regs, regs[1:]):
                 assert a.dilation >= b.dilation + radii[b.stage]
+
+
+# Per stage, the span along the first axis of each tap column (array,
+# offset on the other axes), and the stage's distinct taps, written out
+# by hand.
+HAND_COLUMNS = {
+    # x - 1, x over rows -1..1, x + 1; 5 taps
+    "jacobi2d": [([0, 2, 0], 5)],
+    # the blur: x, x + 1, x + 2, each over rows -1..1; then JACOBI2D on temp
+    "blur_jacobi2d": [([2, 2, 2], 9), ([0, 2, 0], 5)],
+    # (y, x) over planes -1..1, and its four neighbours in the plane
+    "heat3d": [([2, 0, 0, 0, 0], 7)],
+}
+
+
+@pytest.mark.parametrize("name, shape, s, tile, ratio", [
+    # the benchmark's picks: 2-D strips of 6 rows, 3-D strips of 8 planes;
+    # regions 64 + 2e (e = 0..7), 72, 70, 66, 64, and 18 or 16 planes
+    ("jacobi2d", (9720, 1024), 8, (64, 64), 3.3795930462),
+    ("blur_jacobi2d", (9720, 1024), 2, (64, 64), 3.7246439361),
+    ("heat3d", (9720, 32, 32), 2, (16, 8, 32), 5.3664839468),
+    # a whole strip of 8 planes (5.25 loads a cell), a short one of 5 (7)
+    ("heat3d", (40, 24, 30), 1, (13, 8, 30), (8 * 5.25 + 5 * 7) / 13),
+])
+def test_tap_loads_are_counted_strip_by_strip(name, shape, s, tile, ratio):
+    """Tile by tile, stage by stage, strip by strip: a whole strip loads
+    its cells plus the span of each of its stage's tap columns, a short
+    one its stage's taps at each cell, so loads over updates lies below
+    the stage's taps (5, 9 and 5, 7)."""
+    spec = lower(_port(ref_stencils.get(name, shape=shape))).spec
+    strip = stencil.STRIP_CELLS[spec.ndim]
+    assert strip == {2: 6, 3: 8}[spec.ndim]
+    radii = [st.radius for st in spec.stages]
+    loads = issued = 0
+    for _ in itertools.product(*(range(math.ceil(n / t))
+                                 for n, t in zip(shape, tile))):
+        for j in range(s):
+            for k, (spans, taps) in enumerate(HAND_COLUMNS[name]):
+                e = (s - 1 - j) * spec.radius + sum(radii[k + 1:])
+                ext = [t + 2 * e for t in tile]
+                issued += math.prod(ext)
+                for first in range(0, ext[0], strip):
+                    n = min(strip, ext[0] - first)
+                    loads += math.prod(ext[1:]) * (
+                        sum(n + sp for sp in spans) if n == strip
+                        else n * taps)
+    plan = stencil._launch_plan(spec, s, tile)
+    assert (plan.tap_loads, plan.issued) == (loads, issued)
+    assert plan.tap_loads / plan.issued == pytest.approx(ratio, rel=1e-9)
+
+
+@pytest.mark.parametrize("s, tile", [(1, (64,)), (3, (64,)), (2, (300,))])
+def test_tap_loads_of_a_1d_spec_are_taps_times_cells(s, tile):
+    spec = lower(pt_dsl.parse(ONE_D)).spec
+    plan = stencil._launch_plan(spec, s, tile)
+    cells = sum(r.extent[0] for r in stencil.stage_regions(spec, s, tile))
+    assert plan.tap_loads == math.ceil(300 / tile[0]) * 5 * cells
+    assert plan.tap_loads == 5 * plan.issued
 
 
 def test_predicted_updates_match_the_closed_form(monkeypatch):

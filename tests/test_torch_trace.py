@@ -194,7 +194,7 @@ def test_a_launch_adds_its_batch_times_the_plan_to_the_counters(
     f = stencil.launch_tile_kernel
     names = ("updates_issued", "updates_useful", "blocks", "edge_blocks",
              "local_updates_issued", "local_updates_useful", "window_cells",
-             "reach_cells")
+             "reach_cells", "smem_tap_loads")
     for n in names:    # no launch of this test outlives it
         monkeypatch.setattr(f, n, 7)
     for _ in range(2):
@@ -204,7 +204,7 @@ def test_a_launch_adds_its_batch_times_the_plan_to_the_counters(
         2 * batch * v for v in (plan.issued, plan.useful, plan.tiles,
                                 plan.edge_tiles, plan.local_issued,
                                 plan.local_useful, plan.window_cells,
-                                plan.reach_cells)]
+                                plan.reach_cells, plan.tap_loads)]
 
 
 @pytest.mark.gpu
