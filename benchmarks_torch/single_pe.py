@@ -5,7 +5,7 @@ counterpart of ``benchmarks/single_pe.py``.
 The FPGA rows (the modelled BRAM/FF/LUT numbers, a stand-in for Vitis
 synthesis) equal the reference's.  The reference's TPU translation, VMEM
 bytes of a fused tile, becomes the CUDA tile kernel's shared memory per
-thread block (:func:`repro_torch.kernels.stencil.smem_bytes_estimate`, on
+thread block (:func:`repro_torch.kernels.tiling.smem_bytes_estimate`, on
 the default tile) at ``s`` in {1, 4}, checked against the card's
 ``smem_per_block``: the coalesced buffer is one shared-memory window per
 block instead of per-tap FIFO slices."""
@@ -14,7 +14,7 @@ from __future__ import annotations
 from repro_torch.configs import stencils
 from repro_torch.core.model import estimate_pe_resources
 from repro_torch.core.platform import DEFAULT_FPGA, DEFAULT_GPU
-from repro_torch.kernels.stencil import smem_bytes_estimate
+from repro_torch.kernels.tiling import smem_bytes_estimate
 
 BENCHES = ["jacobi2d", "jacobi3d", "blur", "seidel2d", "dilate", "hotspot",
            "heat3d", "sobel2d"]

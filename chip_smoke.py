@@ -1911,7 +1911,7 @@ def main() -> int:
     from repro_torch.core.model import ParallelismConfig, resident_blocks
     from repro_torch.core.platform import gpu_platform_for
     from repro_torch.core.spec import Boundary
-    from repro_torch.kernels import cuda_build, ops, pipeline, ref, stencil
+    from repro_torch.kernels import cuda_build, ops, pipeline, ref, stencil, tiling
     from repro_torch.runtime import (
         DesignCache,
         ShapeBucketer,
@@ -2024,7 +2024,7 @@ def main() -> int:
             sp = dataclasses.replace(spec, inputs={
                 n: (dt, shape) for n, (dt, _) in spec.inputs.items()})
             for rows in (0, TALL_ROWS[sp.ndim]):
-                yield sp, stencil.default_tile(sp.ndim, rows)
+                yield sp, tiling.default_tile(sp.ndim, rows)
 
     kinds = set()
     for spec0 in small:
@@ -2034,7 +2034,7 @@ def main() -> int:
             arrays = inputs(spec, batch=3)
             t = ops.to_device(spec, arrays, dev)
             for s in SMALL_S:
-                if stencil.smem_bytes_estimate(spec, s, tile) > gpu.smem_per_block:
+                if tiling.smem_bytes_estimate(spec, s, tile) > gpu.smem_per_block:
                     continue
                 runs.append([list(spec.shape), list(tile), s])
                 per_entry = []
@@ -2169,13 +2169,13 @@ def main() -> int:
     for pred in tuned.ranking:
         if pred.config.buffer_depth:
             continue
-        s, tile = pred.config.s, stencil.default_tile(2, pred.config.tile_rows)
+        s, tile = pred.config.s, tiling.default_tile(2, pred.config.tile_rows)
         ms = timed(lambda: ops.stencil_run(spec, t, ITERATIONS, s=s, tile=tile),
                    reps=10, inner=3)
         sweep.append((ms, s, tile))
         emit(phase="sweep", spec=spec.name, shape=[4096, 4096],
              iterations=ITERATIONS, s=s, tile=list(tile),
-             smem_bytes=stencil.smem_bytes_estimate(spec, s, tile), ms=ms,
+             smem_bytes=tiling.smem_bytes_estimate(spec, s, tile), ms=ms,
              predicted_ms=pred.latency * 1e3,
              predicted_compute_ms=pred.compute_term * 1e3,
              predicted_memory_ms=pred.memory_term * 1e3,
@@ -2187,7 +2187,7 @@ def main() -> int:
             fit.append((ms - pred.memory_term * 1e3) * 1e-3 / pred.cell_updates)
     best = min(sweep)
     picked = next(m for m, s, tile in sweep
-                  if (s, tile) == (tuned.config.s, stencil.default_tile(
+                  if (s, tile) == (tuned.config.s, tiling.default_tile(
                       2, tuned.config.tile_rows)))
     emit(phase="sweep_summary", picked=dict(s=tuned.config.s,
          tile_rows=tuned.config.tile_rows), picked_ms=picked,

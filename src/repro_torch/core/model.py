@@ -16,12 +16,11 @@ Part 2 — GPU model for the CUDA tile kernel (one card).  A round of ``s``
   fused iterations launches one kernel over every tile of every axis; per
   round it reads each input window (tile + 2sr per axis, halo overlap
   included) and writes the grid once, and every stage updates the cells
-  of its region of the shrinking trapezoid
-  (:func:`repro_torch.kernels.stencil.stage_regions`), each at a cost per
-  cell update measured on the card.  The fusion limit and the regions
-  come from the kernel's own geometry
-  (:func:`repro_torch.kernels.stencil.smem_bytes_estimate`), so the
-  ranker and the kernel share one source of truth.
+  of its region of the shrinking trapezoid, each at a cost per cell
+  update measured on the card.  The fusion limit, the window bytes and
+  the updates come from the round plan the kernel launches
+  (:func:`repro_torch.kernels.tiling.round_plan`), so the ranker and the
+  kernel share one source of truth.
 
     FPGA concept                      GPU concept
     ------------                      -----------
@@ -45,12 +44,7 @@ import dataclasses
 import math
 from repro_torch.core.platform import FPGAPlatform, GPUPlatform
 from repro_torch.core.spec import BinOp, Call, Neg, StencilSpec, walk
-from repro_torch.kernels.stencil import (
-    default_tile,
-    plan_blocks,
-    smem_bytes_estimate,
-    stage_regions,
-)
+from repro_torch.kernels.tiling import default_tile, round_plan
 
 VARIANTS = ("temporal", "spatial_r", "spatial_s", "hybrid_r", "hybrid_s")
 
@@ -288,25 +282,13 @@ def smem_fusion_limit(
     """Largest fusion depth ``s`` whose thread block fits in shared memory.
 
     The GPU analogue of Eq. 1's resource bound.  It asks the kernel's own
-    :func:`~repro_torch.kernels.stencil.smem_bytes_estimate`, so the ranker
-    never picks a depth the kernel would refuse.
+    round plan (:func:`~repro_torch.kernels.tiling.round_plan`), so the
+    ranker never picks a depth the kernel would refuse.
     """
     s = 1
-    while s < cap and smem_bytes_estimate(spec, s + 1, tile) <= gpu.smem_per_block:
+    while s < cap and round_plan(spec, s + 1, tile).smem_bytes <= gpu.smem_per_block:
         s += 1
     return s
-
-
-def _round_work(spec: StencilSpec, s: int, tile) -> tuple[int, int]:
-    """Cell updates and float32 operations of one block over one round of
-    ``s`` fused iterations: the cells of every stage's region."""
-    ops = [st.ops_per_cell for st in spec.stages]
-    updates = flops = 0
-    for reg in stage_regions(spec, s, tile):
-        cells = math.prod(reg.extent)
-        updates += cells
-        flops += cells * ops[reg.stage]
-    return updates, flops
 
 
 def predict_gpu(
@@ -346,8 +328,6 @@ def predict_gpu(
     and writes its tile after its last, and on the card the sum tracks
     the measured time where the larger term alone falls short.
     """
-    from repro_torch.kernels.cuda_build import float_inputs
-
     it = spec.iterations if iterations is None else iterations
     if cfg.variant != "temporal" and cfg.k > 1:
         return _predict_shard(spec, cfg, gpu, it)
@@ -356,19 +336,17 @@ def predict_gpu(
         s = min(s, max(spec.wrap_round_depth, 1))
     rounds = math.ceil(it / s)
     tile = default_tile(spec.ndim, cfg.tile_rows)
-    g = plan_blocks(spec, s, tile)
-    window_cells = g["tiles"] * g["window_cells"]
+    full = round_plan(spec, s, tile)
+    last = round_plan(spec, it - (rounds - 1) * s, tile)
     bytes_per_round = (
-        (len(float_inputs(spec)) * window_cells + spec.cells) * spec.itemsize
-        + len(spec.halo_index_inputs) * window_cells * 4
+        (full.window_cells + spec.cells) * spec.itemsize
+        + len(spec.halo_index_inputs) * full.tiles * math.prod(full.window) * 4
     )
     rewrap = len(spec.wrap_index_inputs) * spec.cells * (4 + 2 * spec.itemsize)
     hbm_bytes = float(bytes_per_round * rounds + rewrap * (rounds - 1))
-    full_u, full_f = _round_work(spec, s, tile)
-    last_u, last_f = _round_work(spec, it - (rounds - 1) * s, tile)
-    updates = float(g["tiles"] * ((rounds - 1) * full_u + last_u))
-    flops = float(g["tiles"] * ((rounds - 1) * full_f + last_f))
-    smem = smem_bytes_estimate(spec, s, tile)
+    updates = float((rounds - 1) * full.issued + last.issued)
+    flops = float((rounds - 1) * full.flops + last.flops)
+    smem = full.smem_bytes
     memory_term = hbm_bytes / gpu.hbm_bw
     rate = min(1.0, resident_blocks(smem, gpu) / gpu.full_rate_blocks) ** 0.5
     compute_term = updates * gpu.cell_update_s / rate
@@ -495,14 +473,12 @@ def gpu_candidate_configs(
     seen = set()
     for rows in TILE_ROWS[spec.ndim]:
         tile = default_tile(spec.ndim, rows)
-        clipped = plan_blocks(spec, 1, tile)["tile"]
-        if clipped in seen or (
-            rows and smem_bytes_estimate(spec, 1, tile) > gpu.smem_per_block
-        ):
+        plan = round_plan(spec, 1, tile)
+        if plan.tile in seen or (rows and plan.smem_bytes > gpu.smem_per_block):
             # the grid clips it to a tile already weighed, or a taller tile
             # does not fit (the default one stays, for SASA401 to report)
             continue
-        seen.add(clipped)
+        seen.add(plan.tile)
         s_max = smem_fusion_limit(spec, gpu, tile, cap=it)
         for s in _fusion_depths(min(it, s_max)):
             out.append(ParallelismConfig("temporal", k=1, s=s, tile_rows=rows))

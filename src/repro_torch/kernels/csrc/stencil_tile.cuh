@@ -29,7 +29,7 @@
 //   SASA_STAGE_CALLS the statements running every stage of one iteration,
 //                    SASA_STAGE(k, tail_k, destination) for each k, where
 //                    tail_k is the sum of the radii of the stages after k
-//                    (kernels/stencil.py::stage_regions at s = 1)
+//                    (kernels/tiling.py::stage_regions at s = 1)
 //
 // Geometry.  Every axis is tiled (a 4096-column f32 row is 16 KB and the
 // window needs several arrays, which 227 KB of shared memory cannot hold
@@ -51,8 +51,9 @@
 // stage reads.  The values of the computed cells are the ones a full-window
 // update would give (the plain version, blockops.fused_iterations_on_block,
 // computes full windows): same taps, same expression, same order.  This is
-// the closed form of kernels/stencil.py::stage_regions, which the ranker
-// (core/model.py::predict_gpu) sums to price the work.
+// the closed form of kernels/tiling.py::stage_regions, which the round
+// plan (kernels/tiling.py::round_plan) sums for the launch's counters and
+// the ranker (core/model.py::predict_gpu) to price the work.
 //
 // Stage walk.  In 2-D and 3-D a stage's region is cut into strips: a
 // column at fixed coordinates on the inner axes (x in 2-D, y and x in

@@ -10,10 +10,11 @@ constants and includes the template.  Nothing else goes into a build.
 Every stage is a ``sasa_stage<k>`` function of one cell, reading each tap
 from shared memory.  A 2-D or 3-D stage is also a ``sasa_strip<k>`` that
 computes a strip of ``SASA_STRIP`` cells along the outermost real axis
-(``repro_torch.kernels.stencil.STRIP_CELLS``): it loads each of the
-stage's columns (:func:`tap_columns`) once into registers, and each tap
-of a cell reads a register.  The expression, its taps and the order of
-its operations are the same in both forms.
+(``repro_torch.kernels.tiling.STRIP_CELLS``): it loads each of the
+stage's columns (:func:`~repro_torch.kernels.tiling.tap_columns`) once
+into registers, and each tap of a cell reads a register.  The
+expression, its taps and the order of its operations are the same in
+both forms.
 
 Build (route (b): a plain C entry point loaded with ``ctypes``)::
 
@@ -50,7 +51,6 @@ import subprocess
 import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import NamedTuple
 
 import numpy as np
 
@@ -64,7 +64,14 @@ from repro_torch.core.spec import (
     Ref,
     StencilSpec,
     Var,
-    refs_in,
+)
+from repro_torch.kernels.tiling import (
+    STRIP_CELLS,
+    float_inputs,
+    frame_width,
+    index_inputs,
+    stage_tails,
+    tap_columns,
 )
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -76,17 +83,6 @@ NVCC_FLAGS = (
 )
 BOUNDARY_CODES = {"zero": 0, "constant": 1, "replicate": 2, "periodic": 3}
 SUPPORTED_DTYPES = ("float32", "bfloat16")
-
-
-def index_inputs(spec: StencilSpec) -> tuple[str, ...]:
-    """The streamed int32 index maps of a bucket spec (halo, then wrap)."""
-    return tuple(spec.halo_index_inputs) + tuple(spec.wrap_index_inputs)
-
-
-def float_inputs(spec: StencilSpec) -> list[str]:
-    """The inputs the kernel stages in shared memory, in spec order."""
-    skip = set(index_inputs(spec))
-    return [n for n in spec.inputs if n not in skip]
 
 
 def check_supported(spec: StencilSpec) -> None:
@@ -126,32 +122,6 @@ def float_literal(value: float) -> str:
     if not np.isfinite(f):
         raise ValueError(f"constant {value!r} is not finite in float32")
     return f"({f.hex()}f)"
-
-
-class TapColumn(NamedTuple):
-    """The taps of one stage on one array at one offset on the inner axes
-    (every real axis but the first): ``inner`` is the offset with the
-    first axis's component 0, ``lo``/``hi`` the least and greatest offset
-    on the first axis.  A strip of ``n`` cells reads ``n + hi - lo`` cells
-    of it."""
-
-    name: str
-    inner: tuple[int, ...]
-    lo: int
-    hi: int
-
-
-def tap_columns(expr: Expr) -> list[TapColumn]:
-    """The distinct (array, inner offset) columns of a stage's taps, in
-    the order of their first tap."""
-    span: dict[tuple[str, tuple[int, ...]], list[int]] = {}
-    for ref in refs_in(expr):
-        offs = tuple(int(o) for o in ref.offsets)
-        key = (ref.name, (0,) + offs[1:])
-        lo_hi = span.setdefault(key, [offs[0], offs[0]])
-        lo_hi[0] = min(lo_hi[0], offs[0])
-        lo_hi[1] = max(lo_hi[1], offs[0])
-    return [TapColumn(n, inner, lo, hi) for (n, inner), (lo, hi) in span.items()]
 
 
 def _offsets3(offsets) -> tuple[int, int, int]:
@@ -285,9 +255,6 @@ def _strip_stage(k: int, expr: Expr, buffers: dict[str, int]) -> list[str]:
 
 def generate(spec: StencilSpec) -> tuple[str, str]:
     """``(kernel.cu, spec_body.cuh)`` sources for a lowered spec."""
-    # the tile geometry lives with the kernel's wrapper, which imports this
-    from repro_torch.kernels.stencil import STRIP_CELLS, frame_width, stage_tails
-
     check_supported(spec)
     names = float_inputs(spec)
     locals_ = spec.local_stages

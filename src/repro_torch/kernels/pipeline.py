@@ -26,8 +26,9 @@ loop, with streamed wrap margins re-imposed between rounds by a
 
 Its rounds and launches carry the spans ``sasa.round``,
 ``sasa.launch.alloc`` and ``sasa.launch.enqueue`` (:mod:`repro_torch.trace`)
-and count their cell updates on ``launch_tile_kernel.updates_issued`` and
-``.updates_useful`` (:mod:`repro_torch.kernels.stencil`).
+and add each round's plan (:func:`repro_torch.kernels.tiling.round_plan`)
+to the counters of ``launch_tile_kernel``
+(:data:`repro_torch.kernels.stencil.COUNTERS`).
 """
 from __future__ import annotations
 

@@ -16,8 +16,9 @@ rule applies per grid.  The config and the pool pick the executor:
     takes the batch-in-grid tile kernel K2
     (:func:`repro_torch.kernels.pipeline.stencil_run_batched`): one launch
     per round for the whole batch (``path == "tile_pipeline"``);
-  * and the rest the single-PE kernel K1 per entry
-    (:func:`repro_torch.kernels.ops.stencil_run`, ``path == "single_pe"``).
+  * and the rest the single-PE kernel K1 per entry, through the round
+    loop :func:`repro_torch.kernels.ops.run_rounds` on the staged
+    tensors (``path == "single_pe"``).
 
 K1 and K2 run the same tile program, so their results are bitwise equal.
 On a CPU device the same calls run the kernels' plain versions.  A
@@ -59,7 +60,8 @@ from repro_torch.core.spec import StencilSpec
 from repro_torch.kernels import ops, pipeline
 from repro_torch.kernels.ops import resolve_pool
 from repro_torch.kernels.blockops import torch_dtype
-from repro_torch.kernels.stencil import default_tile
+from repro_torch.kernels.stencil import stencil_cuda
+from repro_torch.kernels.tiling import default_tile
 from repro_torch.runtime.bucketing import bucket_plan
 from repro_torch.trace import span
 
@@ -235,10 +237,8 @@ def _kernel_runner(spec, cfg, it, dev):
         def fn(arrays: Mapping[str, torch.Tensor]) -> torch.Tensor:
             B = next(iter(arrays.values())).shape[0]
             return torch.stack([
-                ops.stencil_run(
-                    spec, {n: a[b] for n, a in arrays.items()}, it, s=s,
-                    tile=tile, backend="cuda", device=dev,
-                )
+                ops.run_rounds(spec, {n: a[b] for n, a in arrays.items()},
+                               it, s, stencil_cuda, tile)
                 for b in range(B)
             ])
 

@@ -26,7 +26,7 @@ from repro_torch.core import model
 from repro_torch.core.autotune import autotune, soda_baseline
 from repro_torch.core.model import ParallelismConfig
 from repro_torch.core.platform import DEFAULT_FPGA, DEFAULT_GPU, H100_PCIE, gpu_platform_for
-from repro_torch.kernels import ops, stencil
+from repro_torch.kernels import ops, tiling
 from repro_torch.runtime import DesignCache, ShapeBucketer
 from repro_torch.runtime.batching import (
     DegradedDesignWarning,
@@ -64,8 +64,8 @@ def test_gpu_candidates_fit_shared_memory(name):
         assert p.smem_bytes <= DEFAULT_GPU.smem_per_block
         assert p.latency >= max(p.compute_term, p.memory_term) > 0
     s_max = model.smem_fusion_limit(spec, DEFAULT_GPU)
-    assert stencil.smem_bytes_estimate(spec, s_max) <= DEFAULT_GPU.smem_per_block
-    assert stencil.smem_bytes_estimate(spec, s_max + 1) > DEFAULT_GPU.smem_per_block
+    assert tiling.smem_bytes_estimate(spec, s_max) <= DEFAULT_GPU.smem_per_block
+    assert tiling.smem_bytes_estimate(spec, s_max + 1) > DEFAULT_GPU.smem_per_block
 
 
 def test_gpu_platform_rows():

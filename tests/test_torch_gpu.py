@@ -19,7 +19,7 @@ from repro_torch.core import dsl
 from repro_torch.core.ir import lower
 from repro_torch.core.platform import DEFAULT_GPU
 from repro_torch.core.spec import Boundary
-from repro_torch.kernels import cuda_build, ops, pipeline, stencil
+from repro_torch.kernels import cuda_build, ops, pipeline, stencil, tiling
 from repro_torch.runtime.bucketing import bucket_plan
 
 RTOL = {"float32": 2e-4, "bfloat16": 2e-2}   # tests/test_kernels.py::tol
@@ -42,9 +42,9 @@ def _check(spec, device, seed, tile_rows=(0,)):
     }
     t = ops.to_device(spec, arrays, device)
     for rows in tile_rows:
-        tile = stencil.default_tile(spec.ndim, rows)
+        tile = tiling.default_tile(spec.ndim, rows)
         for s in (1, 2, 4, 8):
-            if stencil.smem_bytes_estimate(spec, s, tile) > DEFAULT_GPU.smem_per_block:
+            if tiling.smem_bytes_estimate(spec, s, tile) > DEFAULT_GPU.smem_per_block:
                 continue
             both = pipeline.stencil_cuda_batched(spec, t, s, tile)
             for b in range(2):
@@ -146,9 +146,9 @@ def test_strip_walk_is_bitwise_the_plain_version_on_card(
     on_card = {n: a.to(cuda_device) for n, a in arrays.items()}
     three = spec.ndim == 3
     for tile in ((5, 8, 32) if three else (13, 64),
-                 stencil.default_tile(spec.ndim)):
+                 tiling.default_tile(spec.ndim)):
         for s in (1, 2, 8):
-            if stencil.smem_bytes_estimate(spec, s, tile) > DEFAULT_GPU.smem_per_block:
+            if tiling.smem_bytes_estimate(spec, s, tile) > DEFAULT_GPU.smem_per_block:
                 continue
             got = pipeline.stencil_cuda_batched(spec, on_card, s, tile).cpu()
             want = stencil.tiled_round(spec, arrays, s, tile)

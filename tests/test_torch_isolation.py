@@ -17,9 +17,12 @@ from __future__ import annotations
 import json
 import os
 import pkgutil
+import re
 import subprocess
 import sys
 from pathlib import Path
+
+import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -70,6 +73,41 @@ def test_port_imports_neither_jax_nor_repro():
         "repro_torch.launch.dryrun",
         "repro_torch.roofline", "repro_torch.roofline.analysis",
     } <= set(report["modules"])
+
+
+# The tile kernel's round plan: every name is defined in kernels/tiling.py.
+PLAN_NAMES = {
+    "DEFAULT_TILES", "STRIP_CELLS", "default_tile", "index_inputs",
+    "float_inputs", "stage_tails", "tap_reach", "frame_width", "TapColumn",
+    "tap_columns", "StageRegion", "stage_regions", "tap_loads", "RoundPlan",
+    "round_plan", "smem_bytes_estimate",
+}
+
+
+@pytest.mark.parametrize("module", ["repro_torch.core.model",
+                                    "repro_torch.kernels.tiling"])
+def test_the_ranker_and_the_round_plan_load_no_torch(module):
+    """The ranker and the round plan it prices are arithmetic: in a fresh
+    interpreter importing either loads no torch.  The imports run one
+    way (tiling, then cuda_build, then stencil), and the plan's names are
+    defined in kernels/tiling.py alone."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    probe = (f"import sys, {module}; "
+             "print(sorted(m for m in sys.modules if m.startswith('torch')))")
+    proc = subprocess.run([sys.executable, "-c", probe], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]"
+    kernels = ROOT / "src" / "repro_torch" / "kernels"
+    assert "repro_torch.kernels.stencil" not in (
+        kernels / "cuda_build.py").read_text()
+    top = re.compile(r"^(?:def|class) (\w+)|^(\w+) = ", re.M)
+    for path in (ROOT / "src" / "repro_torch").rglob("*.py"):
+        defined = {a or b for a, b in top.findall(path.read_text())}
+        if path == kernels / "tiling.py":
+            assert PLAN_NAMES <= defined
+        else:
+            assert not defined & PLAN_NAMES, path
 
 
 def test_port_sources_never_name_jax_or_repro():

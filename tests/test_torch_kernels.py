@@ -33,10 +33,11 @@ from repro.kernels import blockops as ref_blockops
 from repro.kernels import ops as ref_ops
 from repro.core.spec import Boundary as RefBoundary
 
+from repro_torch.configs import stencils as pt_stencils
 from repro_torch.core import dsl as pt_dsl
 from repro_torch.core.ir import lower
 from repro_torch.core.spec import Boundary
-from repro_torch.kernels import blockops, cuda_build, ops, pipeline, stencil
+from repro_torch.kernels import blockops, cuda_build, ops, pipeline, stencil, tiling
 from repro_torch.runtime.bucketing import bucket_plan
 
 RTOL_F32 = 2e-4   # tests/test_kernels.py::tol
@@ -230,16 +231,28 @@ def test_wrap_round_fixup_matches_reference():
 
 def test_plan_blocks_and_smem_estimate():
     spec = lower(_port(ref_stencils.get("hotspot", shape=(9720, 1024)))).spec
-    g = stencil.plan_blocks(spec, 4)
-    assert g["tile"] == (32, 64) and g["h"] == 4
-    assert g["window"] == (40, 72) and g["frame"] == 0
-    assert g["n_tiles"] == (304, 16) and g["tiles"] == 304 * 16
+    g = tiling.round_plan(spec, 4)
+    assert g.tile == (32, 64) and g.h == 4
+    assert g.window == (40, 72) and g.frame == 0
+    assert g.n_tiles == (304, 16) and g.tiles == 304 * 16
     # two inputs + the next iterate, as float
-    assert stencil.smem_bytes_estimate(spec, 4) == 3 * 40 * 72 * 4
-    assert stencil.plan_blocks(spec, 4, (64, 64))["window"] == (72, 72)
-    small = stencil.plan_blocks(lower(_port(
+    assert tiling.smem_bytes_estimate(spec, 4) == 3 * 40 * 72 * 4
+    assert g.smem_bytes == 3 * 40 * 72 * 4 and g.n_buffers == 3
+    assert tiling.round_plan(spec, 4, (64, 64)).window == (72, 72)
+    small = tiling.round_plan(lower(_port(
         ref_stencils.get("jacobi2d", shape=(7, 5)))).spec, 2)
-    assert small["tile"] == (7, 5)       # clipped to the grid
+    assert small.tile == (7, 5)       # clipped to the grid
+    # a plan builds for any spec; the launch refuses what the kernel
+    # cannot run (here four axes), the plain version walks it
+    four = lower(pt_dsl.parse(
+        "kernel: K4\ninput float: a(4, 4, 4, 6)\n"
+        "output float: b(0,0,0,0) = (a(-1,0,0,0) + a(0,0,0,1)) / 2\n")).spec
+    assert tiling.round_plan(four, 1, (4, 4, 4, 4)).tiles == 2
+    with pytest.raises(NotImplementedError):
+        stencil._launch_plan(four, 1, (4, 4, 4, 4))
+    grid = torch.rand(4, 4, 4, 6)
+    out = stencil.stencil_torch_tiled(four, {"a": grid}, 1, (4, 4, 4, 4))
+    assert out.shape == grid.shape
     # a replicate bucket spec stages the data and the mask as float
     # windows (+ the next iterate), each inside a zero frame of the largest
     # stage radius; its two int32 halo maps are read from global memory,
@@ -247,13 +260,13 @@ def test_plan_blocks_and_smem_estimate():
     jac = lower(_port(ref_stencils.get("jacobi2d", shape=(60, 60)))).spec
     rep = bucket_plan(dataclasses.replace(jac, boundary=Boundary("replicate")),
                       (64, 64)).mspec
-    assert rep.num_inputs == 4 and stencil.plan_blocks(rep, 4)["n_buffers"] == 3
-    assert stencil.plan_blocks(rep, 4)["frame"] == 1
-    assert stencil.smem_bytes_estimate(rep, 4) == 3 * 42 * 74 * 4 + 6 * 4
+    assert rep.num_inputs == 4 and tiling.round_plan(rep, 4).n_buffers == 3
+    assert tiling.round_plan(rep, 4).frame == 1
+    assert tiling.smem_bytes_estimate(rep, 4) == 3 * 42 * 74 * 4 + 6 * 4
     wrap = bucket_plan(dataclasses.replace(jac, boundary=Boundary("periodic")),
                        (64, 64), wrap_rounds=2).mspec
-    assert stencil.smem_bytes_estimate(wrap, 2, (32, 32)) == \
-        stencil.smem_bytes_estimate(jac, 2, (32, 32))
+    assert tiling.smem_bytes_estimate(wrap, 2, (32, 32)) == \
+        tiling.smem_bytes_estimate(jac, 2, (32, 32))
 
 
 def test_cuda_kernel_refuses_what_it_cannot_run():
@@ -286,7 +299,7 @@ def test_cuda_kernel_takes_bucket_specs(kind):
     assert f"#define SASA_N_IN {floats}\n" in tu
     halo = 2 if kind == "replicate" else 0
     assert f"#define SASA_N_HALO {halo}\n" in tu
-    assert cuda_build.float_inputs(plan.mspec) == list(plan.mspec.inputs)[:floats]
+    assert tiling.float_inputs(plan.mspec) == list(plan.mspec.inputs)[:floats]
 
 
 # A 1-D spec: the kernel walks it cell by cell.
@@ -325,7 +338,7 @@ def test_generated_source_is_exact_and_structural():
     assert "#define SASA_STAGE_CALLS SASA_STAGE(0, 0, nxt)" in body
     assert "#define SASA_RADIUS 1\n" in tu and "#define SASA_FRAME 0\n" in tu
     blur = lower(_port(ref_stencils.get("blur_jacobi2d", shape=(64, 64)))).spec
-    assert [r.dilation for r in stencil.stage_regions(blur, 1)] == [1, 0]
+    assert [r.dilation for r in tiling.stage_regions(blur, 1)] == [1, 0]
     assert "SASA_STAGE(0, 1, buf[SASA_N_IN + 0]) SASA_STAGE(1, 0, nxt)" in \
         cuda_build.generate(blur)[1]
     # 1-D keeps the cell-by-cell stage: a tap is the cell's flat index plus
@@ -369,7 +382,7 @@ def _region_mask(reg, full, window, tiles_shape):
 def _trapezoid_block(spec, blocks, s, origin, grid_shape, boundary=None,
                      compute_dtype=None, *, tile):
     """``blockops.fused_iterations_on_block`` with every stage confined to
-    its region of ``stencil.stage_regions``: each cell outside the region
+    its region of ``tiling.stage_regions``: each cell outside the region
     is NaN from the moment the stage writes, so a needed cell that reads
     one is NaN too.  Blocks of a streamed spec whose belt [lo, hi] misses
     the tile on an axis update that axis whole (the kernel's rule)."""
@@ -385,7 +398,7 @@ def _trapezoid_block(spec, blocks, s, origin, grid_shape, boundary=None,
     first = env[spec.iterate_input]
     window = tuple(first.shape[-nd:])
     lead = tuple(first.shape[:-nd])
-    g = stencil.plan_blocks(spec, s, tile)
+    g = tiling.round_plan(spec, s, tile)
     full = torch.zeros(lead + (nd,), dtype=torch.bool)
     streamed = bool(spec.halo_index_inputs)
     if streamed:
@@ -396,11 +409,11 @@ def _trapezoid_block(spec, blocks, s, origin, grid_shape, boundary=None,
             tgt = (src[name].long() - org).clamp(0, window[d] - 1)
             lo = tgt.amin(dim=axes)
             hi = tgt.amax(dim=axes)
-            full[..., d] = (lo > g["h"] + g["tile"][d] - 1) | (hi < g["h"])
+            full[..., d] = (lo > g.h + g.tile[d] - 1) | (hi < g.h)
         env = {n: blockops.streamed_halo_fixup(a, src, spec, origin)
                for n, a in env.items()}
     env = {n: fixup(a) for n, a in env.items()}
-    regions = iter(stencil.stage_regions(spec, s, tile))
+    regions = iter(tiling.stage_regions(spec, s, tile))
     cur = env[spec.iterate_input]
     for _ in range(s):
         env[spec.iterate_input] = cur
@@ -492,7 +505,7 @@ def test_stage_regions_shrink_to_the_tile():
         spec = lower(_port(ref_stencils.get(name))).spec
         radii = [st.radius for st in spec.stages]
         for s in (1, 3, 8):
-            regs = stencil.stage_regions(spec, s, (32,) * spec.ndim)
+            regs = tiling.stage_regions(spec, s, (32,) * spec.ndim)
             h = s * spec.radius
             assert len(regs) == s * len(radii)
             for reg in regs:
@@ -532,7 +545,7 @@ def test_tap_loads_are_counted_strip_by_strip(name, shape, s, tile, ratio):
     one its stage's taps at each cell, so loads over updates lies below
     the stage's taps (5, 9 and 5, 7)."""
     spec = lower(_port(ref_stencils.get(name, shape=shape))).spec
-    strip = stencil.STRIP_CELLS[spec.ndim]
+    strip = tiling.STRIP_CELLS[spec.ndim]
     assert strip == {2: 6, 3: 8}[spec.ndim]
     radii = [st.radius for st in spec.stages]
     loads = issued = 0
@@ -548,7 +561,7 @@ def test_tap_loads_are_counted_strip_by_strip(name, shape, s, tile, ratio):
                     loads += math.prod(ext[1:]) * (
                         sum(n + sp for sp in spans) if n == strip
                         else n * taps)
-    plan = stencil._launch_plan(spec, s, tile)
+    plan = tiling.round_plan(spec, s, tile)
     assert (plan.tap_loads, plan.issued) == (loads, issued)
     assert plan.tap_loads / plan.issued == pytest.approx(ratio, rel=1e-9)
 
@@ -556,8 +569,8 @@ def test_tap_loads_are_counted_strip_by_strip(name, shape, s, tile, ratio):
 @pytest.mark.parametrize("s, tile", [(1, (64,)), (3, (64,)), (2, (300,))])
 def test_tap_loads_of_a_1d_spec_are_taps_times_cells(s, tile):
     spec = lower(pt_dsl.parse(ONE_D)).spec
-    plan = stencil._launch_plan(spec, s, tile)
-    cells = sum(r.extent[0] for r in stencil.stage_regions(spec, s, tile))
+    plan = tiling.round_plan(spec, s, tile)
+    cells = sum(r.extent[0] for r in tiling.stage_regions(spec, s, tile))
     assert plan.tap_loads == math.ceil(300 / tile[0]) * 5 * cells
     assert plan.tap_loads == 5 * plan.issued
 
@@ -581,7 +594,7 @@ def test_predicted_updates_match_the_closed_form(monkeypatch):
     assert resident_blocks(int(p.smem_bytes), DEFAULT_GPU) == 4
     assert p.compute_term == p.cell_updates * DEFAULT_GPU.cell_update_s
     assert p.latency == p.compute_term + p.memory_term + DEFAULT_GPU.launch_s
-    monkeypatch.setitem(stencil.DEFAULT_TILES, 2, (32, 32))
+    monkeypatch.setitem(tiling.DEFAULT_TILES, 2, (32, 32))
     p = predict_gpu(spec, cfg, DEFAULT_GPU)
     assert p.cell_updates == 16384 * sum((32 + 2 * k) ** 2 for k in range(16))
     assert p.rounds == 1
@@ -589,6 +602,44 @@ def test_predicted_updates_match_the_closed_form(monkeypatch):
     p20 = predict_gpu(spec, cfg, DEFAULT_GPU, iterations=20)
     assert p20.cell_updates == p.cell_updates + 16384 * sum(
         (32 + 2 * k) ** 2 for k in range(4))
+
+
+@pytest.mark.parametrize("name, it", [
+    *[(name, 64) for name in pt_stencils.BENCHMARKS],
+    ("jacobi2d", 20),            # a ragged last round at s = 8 and 16
+    ("periodic_bucket", 9),      # rounds capped at the wrap depth, 2
+])
+def test_the_rankers_updates_are_the_round_plans(name, it):
+    """predict_gpu prices the updates the launch counts: the full rounds
+    at the depth left after the wrap cap, then the ragged last round,
+    each its round plan's ``issued`` (what ``redundant_update_ratio``
+    reads off the launch's counters)."""
+    from repro_torch.core.model import gpu_candidate_configs, predict_gpu
+    from repro_torch.core.platform import DEFAULT_GPU
+
+    if name == "periodic_bucket":
+        jac = lower(_port(ref_stencils.get("jacobi2d", shape=(60, 60)))).spec
+        spec = bucket_plan(
+            dataclasses.replace(jac, boundary=Boundary("periodic")),
+            (64, 64), wrap_rounds=2).mspec
+    else:
+        spec = lower(pt_stencils.get(name, iterations=it)).spec
+    depths = set()
+    for cfg in gpu_candidate_configs(spec, DEFAULT_GPU, it):
+        s = max(min(cfg.s, it), 1)
+        if spec.wrap_index_inputs:
+            s = min(s, spec.wrap_round_depth)
+        rounds = math.ceil(it / s)
+        last = it - (rounds - 1) * s
+        depths.add((cfg.s, s, last))
+        tile = tiling.default_tile(spec.ndim, cfg.tile_rows)
+        want = ((rounds - 1) * tiling.round_plan(spec, s, tile).issued
+                + tiling.round_plan(spec, last, tile).issued)
+        assert predict_gpu(spec, cfg, DEFAULT_GPU, it).cell_updates == want
+    if name == "jacobi2d" and it == 20:
+        assert {(8, 8, 4), (16, 16, 4)} <= depths
+    if name == "periodic_bucket":
+        assert (8, 2, 1) in depths
 
 
 def test_resident_blocks_price_occupancy():

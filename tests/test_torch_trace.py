@@ -27,7 +27,7 @@ import torch
 from repro_torch import trace
 from repro_torch.configs import stencils
 from repro_torch.core.model import ParallelismConfig
-from repro_torch.kernels import stencil
+from repro_torch.kernels import stencil, tiling
 from repro_torch.runtime.batching import build_batched_runner
 
 K2 = ParallelismConfig("temporal", s=2, buffer_depth=2)
@@ -94,7 +94,7 @@ def closed_form(spec, s, tile):
     """Issued and useful updates of one grid, from the trapezoid alone."""
     tiles = math.prod(math.ceil(n / t) for n, t in zip(spec.shape, tile))
     issued = tiles * sum(math.prod(r.extent)
-                         for r in stencil.stage_regions(spec, s, tile))
+                         for r in tiling.stage_regions(spec, s, tile))
     return issued, math.prod(spec.shape) * s * len(spec.stages)
 
 
@@ -111,7 +111,7 @@ def closed_form(spec, s, tile):
 ])
 def test_update_counts_are_the_trapezoids(name, shape, s, tile, ratio):
     spec = stencils.get(name, shape=shape)
-    plan = stencil._launch_plan(spec, s, tile)
+    plan = tiling.round_plan(spec, s, tile)
     assert (plan.issued, plan.useful) == closed_form(spec, s, tile)
     assert plan.issued / plan.useful == pytest.approx(ratio, rel=1e-12)
 
@@ -143,7 +143,7 @@ def brute_force_tiles(spec, s, tile):
 def test_edge_tiles_are_counted_tile_by_tile(name, shape, s, tile, tiles,
                                              edge):
     spec = stencils.get(name, shape=shape)
-    plan = stencil._launch_plan(spec, s, tile)
+    plan = tiling.round_plan(spec, s, tile)
     assert (plan.tiles, plan.edge_tiles) == (tiles, edge)
     assert brute_force_tiles(spec, s, tile) == (tiles, edge)
 
@@ -199,7 +199,7 @@ def test_a_launch_adds_its_batch_times_the_plan_to_the_counters(
         monkeypatch.setattr(f, n, 7)
     for _ in range(2):
         f(spec, [grids], s, tile)
-    plan = stencil._launch_plan(spec, s, tile)
+    plan = tiling.round_plan(spec, s, tile)
     assert [getattr(f, n) - 7 for n in names] == [
         2 * batch * v for v in (plan.issued, plan.useful, plan.tiles,
                                 plan.edge_tiles, plan.local_issued,
@@ -231,7 +231,7 @@ def test_each_launch_lies_in_its_enqueue_span(tmp_path):
     events = profiled_events(tmp_path, solve, [
         torch.profiler.ProfilerActivity.CPU,
         torch.profiler.ProfilerActivity.CUDA])
-    plan = stencil._launch_plan(spec, 2, tuple(runner.tile))
+    plan = tiling.round_plan(spec, 2, tuple(runner.tile))
     assert (f.updates_issued - before[0], f.updates_useful - before[1],
             f.blocks - before[2], f.edge_blocks - before[3]) == (
         3 * 2 * plan.issued, 3 * 2 * plan.useful, 3 * 2 * plan.tiles,
