@@ -66,11 +66,10 @@
 // of a cell reads a register: a JACOBI2D update loads 3 + 2 / SASA_STRIP
 // values where it has 5 taps, HEAT3D 5 + 2 / SASA_STRIP of 7.  The strip
 // is computed one operation at a time over all its cells (each cell's
-// operations in its own order), so every division's operands are ready
-// before the first division's branch; the results are then stored one
-// row stride apart.  The strip left at the region's end when its extent
-// is no multiple of SASA_STRIP is shorter, and runs its cells one by one
-// through sasa_stage.  An edge
+// operations in its own order), so the cells' operations interleave
+// freely; the results are then stored one row stride apart.  The strip
+// left at the region's end when its extent is no multiple of SASA_STRIP
+// is shorter, and runs its cells one by one through sasa_stage.  An edge
 // block tests the inner coordinates of a column once and bounds the walk
 // coordinate before the strip.  Every cell of the region, and no other,
 // is computed with the same expression, taps and order of operations as
@@ -127,15 +126,17 @@
 // s = 1 the kernel is bound by HBM bytes.  At depth it is bound by the
 // instructions it issues per cell update: shared loads, index arithmetic,
 // the edge test and the arithmetic of the stage.  The strip walk keeps the
-// first three to a fraction of a cell's taps (the stage's arithmetic and
-// its IEEE division stay); the ranker prices the updates of the regions
+// first three to a fraction of a cell's taps (the stage's arithmetic
+// stays; a division by a constant is a reciprocal with one correction,
+// kernels/division.py); the ranker prices the updates of the regions
 // above.
 //
 // Numerics: every value lives in shared memory as float; each stage
 // computes in float with one rounding per operation (built with
-// -fmad=false and IEEE division) and rounds to the storage type where the
-// stage writes.  Tensor cores do not apply: a banded matrix product in
-// TF32, or any reordering of a stage's sums, would change the rounding,
+// -fmad=false; a division is RN(x / d), by IEEE division or, for a
+// constant d, a sequence bitwise equal to it) and rounds to the storage
+// type where the stage writes.  Tensor cores do not apply: a banded
+// matrix product in TF32, or any reordering of a stage's sums, would change the rounding,
 // and the contract is one float32 rounding per operation, bitwise equal
 // between K1 and K2 and across kernel revisions.
 

@@ -22,10 +22,15 @@ Build (route (b): a plain C entry point loaded with ``ctypes``)::
          -Xcompiler -fPIC -fmad=false -prec-div=true -prec-sqrt=true \\
          -ftz=false -I csrc -I <build dir> kernel.cu -o libsasa.so
 
-``-fmad=false`` and IEEE division keep one rounding per operation.  A
-``Num`` is emitted as the exact float32 value of ``np.float32(value)``
-as a hex-float literal (a decimal literal could round twice).  bfloat16
-specs compute in float and round to bfloat16 where a stage writes.
+``-fmad=false`` keeps one rounding per operation.  A division is
+RN(x / d), bitwise what IEEE division gives: a division by a constant
+``Num`` that :func:`~repro_torch.kernels.division.lower_division` admits
+is emitted as a multiply by its exact reciprocal or as the correction
+sequence (``__fmul_rn``, ``__fmaf_rn``, ``fminf``) with no branch, any
+other as C ``/`` under ``-prec-div=true``.  A ``Num`` is emitted as the
+exact float32 value of ``np.float32(value)`` as a hex-float literal (a
+decimal literal could round twice).  bfloat16 specs compute in float and
+round to bfloat16 where a stage writes.
 
 The shared library is cached by a hash of the generated sources, the
 template sources in ``csrc/`` and the flags, under
@@ -65,6 +70,7 @@ from repro_torch.core.spec import (
     StencilSpec,
     Var,
 )
+from repro_torch.kernels.division import Division, lower_division
 from repro_torch.kernels.tiling import (
     STRIP_CELLS,
     float_inputs,
@@ -124,6 +130,9 @@ def float_literal(value: float) -> str:
     return f"({f.hex()}f)"
 
 
+FLT_MAX = float_literal(np.finfo(np.float32).max)
+
+
 def _offsets3(offsets) -> tuple[int, int, int]:
     """A tap's offsets on the kernel's three axes (leading axes 0)."""
     return (0,) * (3 - len(offsets)) + tuple(int(o) for o in offsets)
@@ -170,6 +179,21 @@ class _Emitter:
         self.lines.append(f"  const float {var} = {value};")
         return var
 
+    def divide(self, x: str, d: str, how: Division) -> str:
+        """``x / d`` as ``how`` lowers it (:mod:`repro_torch.kernels.division`),
+        each operation of the correction its own operation over a strip."""
+        if how.kind == "ieee":
+            return self.op(f"({x} / {d})")
+        y = float_literal(how.reciprocal)
+        if how.kind == "reciprocal":
+            return self.op(f"__fmul_rn({x}, {y})")
+        x = self.bind(x)
+        q = self.bind(self.op(f"__fmul_rn({x}, {y})"))
+        signed_x = f"(-{x})" if how.divisor > 0 else x
+        e = self.op(f"__fmaf_rn({float_literal(abs(how.divisor))}, {q}, {signed_x})")
+        e = self.op(f"fminf({e}, {FLT_MAX})")
+        return self.op(f"__fmaf_rn({float_literal(-abs(how.reciprocal))}, {e}, {q})")
+
     def expr(self, e: Expr, env: dict[str, str]) -> str:
         if isinstance(e, Num):
             return float_literal(e.value)
@@ -197,6 +221,8 @@ class _Emitter:
                 raise ValueError(f"unknown op {e.op!r}")
             lhs = self.expr(e.lhs, env)
             rhs = self.expr(e.rhs, env)
+            if e.op == "/":
+                return self.divide(lhs, rhs, lower_division(e.rhs))
             return self.op(f"({lhs} {e.op} {rhs})")
         if isinstance(e, Call):
             args = [self.expr(a, env) for a in e.args]

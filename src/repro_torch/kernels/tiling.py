@@ -21,6 +21,7 @@ import math
 from typing import NamedTuple, Sequence
 
 from repro_torch.core.spec import Expr, StencilSpec, refs_in
+from repro_torch.kernels.division import division_counts
 
 # Interior tile per number of axes; the row extent can be overridden.
 DEFAULT_TILES = {1: (256,), 2: (32, 64), 3: (8, 8, 32)}
@@ -195,6 +196,8 @@ class RoundPlan(NamedTuple):
     reach_cells: int
     tap_loads: int              # shared-memory loads of taps
     flops: int                  # float32 operations of the issued updates
+    divides_reciprocal: int     # divisions of the issued updates lowered
+    divides_ieee: int           # to a reciprocal, and left as C `/`
 
 
 @functools.lru_cache(maxsize=256)
@@ -216,7 +219,9 @@ def round_plan(
     on some axis.  Every tile stages one window per floating input, and
     the taps reach the cells of the tile widened by ``s`` times
     :func:`tap_reach`.  Tap loads: the tile count times :func:`tap_loads`
-    of the regions."""
+    of the regions.  Divisions: each issued update of a stage times that
+    stage's divisions of each lowering
+    (:func:`~repro_torch.kernels.division.division_counts`)."""
     grid = tuple(spec.shape)
     h = s * spec.radius
     tile = _clip_tile(spec, tile)
@@ -238,6 +243,7 @@ def round_plan(
     cells = [math.prod(reg.extent) for reg in regions]
     local = [not spec.stages[reg.stage].is_output for reg in regions]
     ops = [st.ops_per_cell for st in spec.stages]
+    divides = [division_counts(st.expr) for st in spec.stages]
     inside = math.prod(
         sum(1 for i in range(nt) if i * t >= h and (i + 1) * t + h <= n)
         for n, t, nt in zip(grid, tile, n_tiles)
@@ -257,6 +263,10 @@ def round_plan(
         reach_cells=tiles * floats * reach,
         tap_loads=tiles * tap_loads(spec, regions),
         flops=tiles * sum(c * ops[reg.stage] for c, reg in zip(cells, regions)),
+        divides_reciprocal=tiles * sum(
+            c * divides[reg.stage][0] for c, reg in zip(cells, regions)),
+        divides_ieee=tiles * sum(
+            c * divides[reg.stage][1] for c, reg in zip(cells, regions)),
     )
 
 

@@ -8,7 +8,10 @@ installed::
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import subprocess
+from fractions import Fraction
 
 import numpy as np
 import pytest
@@ -18,8 +21,8 @@ from repro_torch.configs import stencils
 from repro_torch.core import dsl
 from repro_torch.core.ir import lower
 from repro_torch.core.platform import DEFAULT_GPU
-from repro_torch.core.spec import Boundary
-from repro_torch.kernels import cuda_build, ops, pipeline, stencil, tiling
+from repro_torch.core.spec import Boundary, Num
+from repro_torch.kernels import cuda_build, division, ops, pipeline, stencil, tiling
 from repro_torch.runtime.bucketing import bucket_plan
 
 RTOL = {"float32": 2e-4, "bfloat16": 2e-2}   # tests/test_kernels.py::tol
@@ -267,3 +270,123 @@ def test_store_round_trip_on_card(cuda_device, tmp_path, monkeypatch):
     key = cuda_build.kernel_key(cached.design.spec)
     assert (tmp_path / "kernels_warm" / key / "libsasa.so").is_file()
     np.testing.assert_array_equal(out_cold, out_warm)
+
+
+# Divisors whose sequence the exhaustive test runs: the rule admits the
+# odd integers and refuses the even and fractional ones
+# (``kernels/division.py``).
+DIVISORS = [3.0, 5.0, 6.0, 7.0, 9.0, 10.0, 25.0, 1.5, 0.3, -5.0]
+ADMITTED = {3.0, 5.0, 7.0, 9.0, 25.0, -5.0}
+
+_DIVISION_MAIN = r"""
+#include <cuda_runtime.h>
+#include <math.h>
+
+__global__ void sasa_count(int which, unsigned long long* bad,
+                           unsigned int* first) {
+  unsigned long long n = 0;
+  unsigned int lo = 0xFFFFFFFFu;
+  for (unsigned long long i = blockIdx.x * (unsigned long long)blockDim.x
+           + threadIdx.x; i < (1ull << 32);
+       i += (unsigned long long)gridDim.x * blockDim.x) {
+    const float x = __uint_as_float((unsigned int)i);
+    float got = 0.0f, want = 0.0f;
+    switch (which) {
+SASA_CASES
+    }
+    if (__float_as_uint(got) != __float_as_uint(want)
+        && !(isnan(got) && isnan(want))) {
+      ++n;
+      lo = min(lo, (unsigned int)i);
+    }
+  }
+  if (n) {
+    atomicAdd(bad, n);
+    atomicMin(first, lo);
+  }
+}
+
+extern "C" int sasa_count_all(int which, unsigned long long* bad,
+                              unsigned int* first) {
+  unsigned long long* d_bad;
+  unsigned int* d_first;
+  cudaMalloc(&d_bad, sizeof *d_bad);
+  cudaMalloc(&d_first, sizeof *d_first);
+  cudaMemset(d_bad, 0, sizeof *d_bad);
+  cudaMemset(d_first, 0xFF, sizeof *d_first);
+  sasa_count<<<132 * 16, 256>>>(which, d_bad, d_first);
+  cudaMemcpy(bad, d_bad, sizeof *bad, cudaMemcpyDeviceToHost);
+  cudaMemcpy(first, d_first, sizeof *first, cudaMemcpyDeviceToHost);
+  cudaFree(d_bad);
+  cudaFree(d_first);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def _division_case(which, how, d) -> str:
+    """One ``case`` of the counting kernel: the stage code the generator
+    emits for ``x / d`` lowered as ``how``, against ``__fdiv_rn``."""
+    em = cuda_build._Emitter({})
+    lit = cuda_build.float_literal(d)
+    result = em.divide("x", lit, how)
+    return "\n".join([
+        f"    case {which}: {{", *("  " + ln for ln in em.lines),
+        f"      got = {result};", f"      want = __fdiv_rn(x, {lit});",
+        "      break;", "    }"])
+
+
+@pytest.fixture(scope="module")
+def fdiv_mismatches(tmp_path_factory):
+    """Mismatches and the first mismatching bit pattern over all 2^32
+    float32 ``x``, per divisor: of the emitted lowering, and of the
+    correction sequence forced on every divisor."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    cases, index = [], {}
+    for d in DIVISORS:
+        how = division.lower_division(Num(d))
+        forced = division.Division(
+            "correction", d, division.round_float32(1 / Fraction(d)))
+        for label, h in (("emitted", how), ("forced", forced)):
+            index[(d, label)] = len(cases)
+            cases.append(_division_case(len(cases), h, d))
+    work = tmp_path_factory.mktemp("division")
+    (work / "division.cu").write_text(
+        _DIVISION_MAIN.replace("SASA_CASES", "\n".join(cases)))
+    so = work / "libdivision.so"
+    proc = subprocess.run(
+        [cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS,
+         str(work / "division.cu"), "-o", str(so)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    assert proc.returncode == 0, proc.stdout
+    fn = ctypes.CDLL(str(so)).sasa_count_all
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_ulonglong),
+                   ctypes.POINTER(ctypes.c_uint)]
+    fn.restype = ctypes.c_int
+    counts = {}
+    for key, which in index.items():
+        bad, first = ctypes.c_ulonglong(), ctypes.c_uint()
+        assert fn(which, ctypes.byref(bad), ctypes.byref(first)) == 0
+        counts[key] = (bad.value, first.value)
+    return counts
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", DIVISORS)
+def test_emitted_division_equals_fdiv_rn_for_every_float(
+        cuda_device, fdiv_mismatches, d):
+    """Over all 2^32 bit patterns of ``x``, built with ``NVCC_FLAGS``: the
+    stage code for ``x / d`` equals ``__fdiv_rn(x, d)`` bitwise (NaN
+    equals NaN), for the divisors the rule admits (the correction
+    sequence) and for those it refuses (C ``/``).  The forced sequence's
+    count on a refused divisor is printed: what the rule guards against."""
+    kind = division.lower_division(Num(d)).kind
+    assert kind == ("correction" if d in ADMITTED else "ieee")
+    bad, first = fdiv_mismatches[(d, "emitted")]
+    assert bad == 0, (d, hex(first))
+    forced, first = fdiv_mismatches[(d, "forced")]
+    if d in ADMITTED:
+        assert forced == 0
+    print(f"divisor {d}: forced correction mismatches {forced}"
+          + (f", first 0x{first:08x}" if forced else ""))

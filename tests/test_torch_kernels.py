@@ -20,6 +20,8 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import math
+import re
+from fractions import Fraction
 
 import jax.numpy as jnp
 import numpy as np
@@ -36,8 +38,8 @@ from repro.core.spec import Boundary as RefBoundary
 from repro_torch.configs import stencils as pt_stencils
 from repro_torch.core import dsl as pt_dsl
 from repro_torch.core.ir import lower
-from repro_torch.core.spec import Boundary
-from repro_torch.kernels import blockops, cuda_build, ops, pipeline, stencil, tiling
+from repro_torch.core.spec import BinOp, Boundary, Num, Ref, Var, walk
+from repro_torch.kernels import blockops, cuda_build, division, ops, pipeline, stencil, tiling
 from repro_torch.runtime.bucketing import bucket_plan
 
 RTOL_F32 = 2e-4   # tests/test_kernels.py::tol
@@ -660,3 +662,223 @@ def test_resident_blocks_price_occupancy():
     assert resident_blocks(int(tall.smem_bytes), DEFAULT_GPU) == 1
     assert tall.compute_term == pytest.approx(
         tall.cell_updates * DEFAULT_GPU.cell_update_s * 3 ** 0.5)
+
+
+# --------------------------------------------------------------------------
+# Division by a constant (kernels/division.py)
+# --------------------------------------------------------------------------
+
+
+def _dyadic(f: float) -> tuple[int, int]:
+    """``(n, e)`` with ``f = n * 2**e``, for a finite float."""
+    num, den = f.as_integer_ratio()
+    return num, 1 - den.bit_length()
+
+
+def _round32(n: int, e: int) -> float:
+    """RN(n * 2**e) in float32, ties to even, as a float; ``n != 0``."""
+    neg, n = n < 0, abs(n)
+    lsb = max(n.bit_length() - 1 + e, -126) - 23
+    shift = lsb - e
+    if shift <= 0:
+        m = n << -shift
+    else:
+        m, rem = n >> shift, n & ((1 << shift) - 1)
+        half = 1 << (shift - 1)
+        m += rem > half or (rem == half and m & 1)
+    v = math.inf if m * 2.0**lsb >= 2.0**128 else math.ldexp(m, lsb)
+    return -v if neg else v
+
+
+def _fma(a: float, b: float, c: float) -> float:
+    """IEEE fmaf on float32 values: one rounding of the exact a * b + c."""
+    if math.isnan(a) or math.isnan(b) or math.isnan(c):
+        return math.nan
+    if math.isinf(a) or math.isinf(b):
+        if a == 0 or b == 0:
+            return math.nan
+        p = a * b
+        return math.nan if math.isinf(c) and c != p else p
+    if math.isinf(c):
+        return c
+    (na, ea), (nb, eb), (nc, ec) = _dyadic(a), _dyadic(b), _dyadic(c)
+    e = min(ea + eb, ec)
+    n = (na * nb << (ea + eb - e)) + (nc << (ec - e))
+    if n:
+        return _round32(n, e)
+    negative_product = (a == 0 or b == 0) and math.copysign(1, a) != math.copysign(1, b)
+    # an exact zero: -0 only where both addends are -0
+    return -0.0 if negative_product and math.copysign(1, c) < 0 else 0.0
+
+
+def _fmin(a: float, b: float) -> float:
+    """fminf: a NaN operand gives the other."""
+    return b if math.isnan(a) else a if math.isnan(b) else min(a, b)
+
+
+def _emitted_division(how: division.Division):
+    """The C the generator emits for ``x / d`` at one cell, lowered as
+    ``how`` says, as a Python function of ``x`` over exact float32
+    operations (``__fmul_rn`` an fma with -0)."""
+    em = cuda_build._Emitter({})
+    result = em.divide("x", "d", how)
+    lines = [ln.strip().removeprefix("const float ").rstrip(";")
+             for ln in em.lines]
+    src = "\n".join(["def f(x):", *("    " + ln for ln in lines),
+                     f"    return {result}"])
+    src = re.sub(r"(-?0x[0-9a-f.]+p[-+][0-9]+)f", r"float.fromhex('\1')", src)
+    ns = {"__fmul_rn": lambda a, b: _fma(a, b, -0.0), "__fmaf_rn": _fma,
+          "fminf": _fmin}
+    exec(src, ns)
+    return ns["f"]
+
+
+def _mismatches(how, d, bits) -> list[int]:
+    """The bit patterns ``x`` where the emitted sequence differs from
+    ``np.float32(x) / np.float32(d)`` (NaN equals NaN)."""
+    f = _emitted_division(how)
+    xs = np.asarray(bits, dtype=np.uint32).view(np.float32)
+    with np.errstate(all="ignore"):
+        want = xs / np.float32(d)
+    bad = []
+    for b, x, w in zip(bits, xs.tolist(), want.tolist()):
+        got = f(x)
+        if not (math.isnan(got) and math.isnan(w)) and \
+                np.float32(got).view(np.uint32) != np.float32(w).view(np.uint32):
+            bad.append(int(b))
+    return bad
+
+
+# ±0, the subnormal range's ends, the normal range's first binade, the
+# binade edges about 1 and 2, multiples of the divisors, the largest
+# finite float, ±inf and NaN, each also negative.
+EDGE_BITS = [
+    b | sign for sign in (0, 0x80000000) for b in (
+        0x00000000, 0x00000001, 0x00000002, 0x00000003, 0x00000009,
+        0x007FFFFF, 0x00800000, 0x00800001, 0x00FFFFFF, 0x01000000,
+        0x0C800000, 0x0CFFFFFF, 0x3F7FFFFF, 0x3F800000, 0x3F800001,
+        0x3FFFFFFF, 0x40000000, 0x40400000, 0x40A00000, 0x40E00000,
+        0x41100000, 0x41200000, 0x7F000000, 0x7F7FFFFE, 0x7F7FFFFF,
+        0x7F800000, 0x7FC00000, 0x7F800001)
+]
+
+
+def test_stock_divisors_lower_to_the_exact_reciprocal():
+    """/ 5, / 7, / 9 of the stock stencils take the correction with
+    RN(1/d) nearer 1/d than either float32 neighbour; / 4 is one exact
+    multiply; a tap, a ``Let`` or an even or fractional constant keeps
+    C ``/``; HEAT3D divides nowhere."""
+    got = {}
+    for name in pt_stencils.BENCHMARKS:
+        spec = lower(pt_stencils.get(name, shape=(12, 10, 9) if name in
+                     pt_stencils.BENCHMARKS_3D else (40, 36))).spec
+        for st in spec.stages:
+            for n in walk(st.expr):
+                if isinstance(n, BinOp) and n.op == "/":
+                    got.setdefault(name, []).append(division.lower_division(n.rhs))
+    assert {n: [h.divisor for h in hs] for n, hs in got.items()} == {
+        "jacobi2d": [5.0], "jacobi3d": [7.0], "blur": [9.0], "seidel2d": [9.0],
+        "blur_jacobi2d": [9.0, 5.0], "blur_replicate": [9.0]}
+    for hs in got.values():
+        for h in hs:
+            assert h.kind == "correction"
+            y = Fraction(h.reciprocal)
+            up = Fraction(float(np.nextafter(np.float32(h.reciprocal), np.float32(1))))
+            down = Fraction(float(np.nextafter(np.float32(h.reciprocal), np.float32(0))))
+            exact = 1 / Fraction(h.divisor)
+            assert abs(y - exact) < min(abs(up - exact), abs(down - exact))
+            assert np.float32(h.reciprocal) == h.reciprocal
+    assert division.lower_division(Num(4.0)) == division.Division(
+        "reciprocal", 4.0, 0.25)
+    assert division.lower_division(Num(-0.5)).reciprocal == -2.0
+    # a power of two whose reciprocal is a normal float32, and no other
+    assert division.lower_division(Num(2.0**-127)).reciprocal == 2.0**127
+    assert division.lower_division(Num(2.0**-128)) == division.IEEE
+    assert division.lower_division(Num(2.0**-149)) == division.IEEE
+    for d in (Ref("in_1", (0, 0)), Var("_t0"), Num(6.0), Num(10.0),
+              Num(1.5), Num(0.3), Num(0.0), Num(2.0**127), Num(2.0**22 + 1)):
+        assert division.lower_division(d) == division.IEEE, d
+    assert division.lower_division(Num(2.0**22 - 1)).kind == "correction"
+    assert division.lower_division(Num(-5)).reciprocal == \
+        -division.lower_division(Num(5)).reciprocal
+    body = cuda_build.generate(lower(pt_stencils.get("jacobi2d", shape=(40, 36))).spec)[1]
+    assert "__fmul_rn(n3[r], (0x1.99999a0000000p-3f))" in body
+    assert "__fmaf_rn((0x1.4000000000000p+2f), n4[r], (-n3[r]))" in body
+    assert " / " not in body
+    heat = cuda_build.generate(lower(pt_stencils.get("heat3d", shape=(12, 10, 9))).spec)[1]
+    assert not any(s in heat for s in (" / ", "__fmul_rn", "__fmaf_rn", "fminf"))
+    mixed = lower(pt_dsl.parse(MIXED)).spec
+    body = cuda_build.generate(mixed)[1]
+    assert "__fmul_rn(t1[r + 0], (0x1.0000000000000p-2f))" in body
+    assert "(t2[r + 0] / (0x1.8000000000000p+2f))" in body
+    assert "(t0[r + 2] / t0[r + 1])" in body and "(t0[r + 0] / n0[r])" in body
+
+
+@pytest.mark.parametrize("d", [5.0, 7.0, 9.0, 3.0, 25.0, -5.0, 4.0, 0.5])
+def test_emitted_division_is_ieee_division_bitwise(d):
+    """The emitted sequence, run on exact rationals rounded once per
+    operation, equals float32 division over the edge cases and random bit
+    patterns: 10^5 over the whole range for the stock divisors (fewer for
+    the others), and 2 x 10^4 below 2^-100, where the correction term
+    would need bits under 2^-149 for a divisor that is no integer."""
+    how = division.lower_division(Num(d))
+    assert how.kind != "ieee"
+    rng = np.random.default_rng(int(abs(d) * 1000))
+    n = 100_000 if d in (5.0, 7.0, 9.0) else 20_000
+    bits = rng.integers(0, 2**32, n, dtype=np.uint64)
+    tiny = rng.integers(0, 0x0D000000, 20_000, dtype=np.uint64) | (
+        rng.integers(0, 2, 20_000, dtype=np.uint64) << 31)
+    assert _mismatches(how, d, EDGE_BITS + bits.tolist() + tiny.tolist()) == []
+
+
+@pytest.mark.parametrize("d, x", [
+    (6.0, 0x00000009),    # 9 * 2^-149 / 6 ties between 1 and 2 * 2^-149
+    (10.0, 0x0000000F),   # 15 * 2^-149 / 10 ties the same way
+])
+def test_the_rule_refuses_divisors_whose_quotients_tie(d, x):
+    """An even divisor's quotient can be a midpoint in the subnormal
+    range, where the correction breaks the tie towards zero, not to even:
+    the rule keeps C ``/`` for it."""
+    forced = division.Division("correction", d, division.round_float32(1 / Fraction(d)))
+    assert _mismatches(forced, d, [x]) == [x]
+    assert division.lower_division(Num(d)) == division.IEEE
+
+
+MIXED = """kernel: MIXED
+iteration: 2
+input float: in_1(40,36)
+output float: out_1(0,0) = in_1(0,1) / 4 + in_1(0,-1) / 6 + in_1(1,0) / in_1(0,0)
+    + in_1(-1,0) / (in_1(0,0) + 2) + in_1(1,1) / (in_1(0,0) + 2) + in_1(0,0) / -5
+"""
+
+
+@pytest.mark.parametrize("name, shape, s, tile, per_update", [
+    ("jacobi2d", (9720, 1024), 8, (64, 64), [(1, 0)]),
+    ("blur_jacobi2d", (9720, 1024), 2, (64, 64), [(1, 0), (1, 0)]),
+    ("heat3d", (9720, 32, 32), 2, (16, 8, 32), [(0, 0)]),
+    ("mixed", (40, 36), 3, (16, 16), [(2, 4)]),
+])
+def test_division_counts_are_the_generated_stages(name, shape, s, tile,
+                                                  per_update):
+    """Stage by stage over every tile: the divisions the generated
+    ``sasa_stage<k>`` computes through a reciprocal (one ``__fmul_rn``
+    each) and by C ``/``, times the cells of the stage's regions, are the
+    round plan's counts."""
+    spec = (lower(pt_dsl.parse(MIXED)).spec if name == "mixed" else
+            lower(pt_stencils.get(name, shape=shape)).spec)
+    body = cuda_build.generate(spec)[1]
+    found = []
+    for k in range(len(spec.stages)):
+        stage = body[body.index(f"sasa_stage<{k}>("):]
+        stage = stage[:stage.index("\n}")]
+        found.append((stage.count("__fmul_rn("), stage.count(" / ")))
+    assert found == per_update
+    tiles = math.prod(math.ceil(n / t) for n, t in zip(shape, tile))
+    recip = ieee = 0
+    for reg in tiling.stage_regions(spec, s, tile):
+        recip += tiles * math.prod(reg.extent) * found[reg.stage][0]
+        ieee += tiles * math.prod(reg.extent) * found[reg.stage][1]
+    plan = tiling.round_plan(spec, s, tile)
+    assert (plan.divides_reciprocal, plan.divides_ieee) == (recip, ieee)
+    if name != "mixed":
+        assert plan.divides_reciprocal == plan.issued * per_update[0][0]
