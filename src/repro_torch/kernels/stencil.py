@@ -31,9 +31,11 @@ and those whose window leaves the grid (``.blocks``, ``.edge_blocks``),
 the same two update counts over the ``local`` stages
 (``.local_updates_issued``, ``.local_updates_useful``), the cells of the
 floating-input windows and those the taps reach (``.window_cells``,
-``.reach_cells``), the shared-memory tap loads (``.smem_tap_loads``), and
-the divisions lowered to a reciprocal and those left as C ``/``
-(``.divides_reciprocal``, ``.divides_ieee``; :mod:`repro_torch.kernels.division`).
+``.reach_cells``), the window cells wrapped round the grid under the
+periodic rule (``.wrapped_cells``), the shared-memory tap loads
+(``.smem_tap_loads``), and the divisions lowered to a reciprocal and
+those left as C ``/`` (``.divides_reciprocal``, ``.divides_ieee``;
+:mod:`repro_torch.kernels.division`).
 """
 from __future__ import annotations
 
@@ -153,6 +155,7 @@ COUNTERS = {
     "local_updates_useful": "local_useful",
     "window_cells": "window_cells",
     "reach_cells": "reach_cells",
+    "wrapped_cells": "wrapped",
     "smem_tap_loads": "tap_loads",
     "divides_reciprocal": "divides_reciprocal",
     "divides_ieee": "divides_ieee",

@@ -194,6 +194,7 @@ class RoundPlan(NamedTuple):
     local_useful: int
     window_cells: int           # staged floating-input cells
     reach_cells: int
+    wrapped: int                # of them outside the grid, periodic only
     tap_loads: int              # shared-memory loads of taps
     flops: int                  # float32 operations of the issued updates
     divides_reciprocal: int     # divisions of the issued updates lowered
@@ -218,9 +219,11 @@ def round_plan(
     the ``local`` stages.  Edge tiles have a window that leaves the grid
     on some axis.  Every tile stages one window per floating input, and
     the taps reach the cells of the tile widened by ``s`` times
-    :func:`tap_reach`.  Tap loads: the tile count times :func:`tap_loads`
-    of the regions.  Divisions: each issued update of a stage times that
-    stage's divisions of each lowering
+    :func:`tap_reach`.  Under the periodic rule the window cells outside
+    the grid are wrapped, each fetched on its own from the opposite side
+    of the grid; under every other rule none is.  Tap loads: the tile
+    count times :func:`tap_loads` of the regions.  Divisions: each issued
+    update of a stage times that stage's divisions of each lowering
     (:func:`~repro_torch.kernels.division.division_counts`)."""
     grid = tuple(spec.shape)
     h = s * spec.radius
@@ -251,6 +254,15 @@ def round_plan(
     reach = math.prod(
         t + s * (lo + hi) for t, (lo, hi) in zip(tile, tap_reach(spec))
     )
+    wrapped = 0
+    if spec.boundary.kind == "periodic":
+        # the window cells of every tile inside the grid: per axis, the
+        # sum over that axis's tiles of the window's in-grid extent
+        in_grid = math.prod(
+            sum(min((i + 1) * t + h, n) - max(i * t - h, 0) for i in range(nt))
+            for n, t, nt in zip(grid, tile, n_tiles)
+        )
+        wrapped = floats * (tiles * math.prod(window) - in_grid)
     return RoundPlan(
         tile, h, n_tiles, window, frame, framed_cells, n_buffers, smem, geom,
         issued=tiles * sum(cells),
@@ -261,6 +273,7 @@ def round_plan(
         local_useful=math.prod(grid) * s * len(spec.local_stages),
         window_cells=tiles * floats * math.prod(window),
         reach_cells=tiles * floats * reach,
+        wrapped=wrapped,
         tap_loads=tiles * tap_loads(spec, regions),
         flops=tiles * sum(c * ops[reg.stage] for c, reg in zip(cells, regions)),
         divides_reciprocal=tiles * sum(

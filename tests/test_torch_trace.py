@@ -174,6 +174,8 @@ class _OnCard:
     ("jacobi2d", (9720, 1024), 1, (128, 64), 32),
     ("jacobi2d", (256, 192), 1, (64, 64), 3),
     ("blur_jacobi2d", (9720, 1024), 2, (64, 64), 8),
+    ("heat3d_periodic", (9720, 32, 32), 2, (16, 8, 32), 8),
+    ("heat3d_periodic", (40, 24, 30), 4, (5, 8, 32), 3),
 ])
 def test_a_launch_adds_its_batch_times_the_plan_to_the_counters(
         monkeypatch, name, shape, s, tile, batch):
@@ -194,7 +196,7 @@ def test_a_launch_adds_its_batch_times_the_plan_to_the_counters(
     f = stencil.launch_tile_kernel
     names = ("updates_issued", "updates_useful", "blocks", "edge_blocks",
              "local_updates_issued", "local_updates_useful", "window_cells",
-             "reach_cells", "smem_tap_loads")
+             "reach_cells", "smem_tap_loads", "wrapped_cells")
     for n in names:    # no launch of this test outlives it
         monkeypatch.setattr(f, n, 7)
     for _ in range(2):
@@ -204,7 +206,9 @@ def test_a_launch_adds_its_batch_times_the_plan_to_the_counters(
         2 * batch * v for v in (plan.issued, plan.useful, plan.tiles,
                                 plan.edge_tiles, plan.local_issued,
                                 plan.local_useful, plan.window_cells,
-                                plan.reach_cells, plan.tap_loads)]
+                                plan.reach_cells, plan.tap_loads,
+                                plan.wrapped)]
+    assert (plan.wrapped > 0) == (name == "heat3d_periodic")
 
 
 @pytest.mark.gpu
