@@ -77,22 +77,41 @@
 // (sasa_walk): a strip along x would put a warp's lanes SASA_STRIP floats
 // apart in shared memory.
 //
-// Boundary rule.  Interior blocks, whose whole window lies inside the
-// grid, load it as row copies with cp.async (16 bytes where rows are
-// aligned, else 4), and run no per-cell grid test, fixup pass or barrier
-// after a stage.  They are 85-86% of the blocks of JACOBI2D 9720x1024 on
-// 64x64 and 128x64 tiles, and none of HEAT3D 9720x32x32 on 16x8x32 tiles,
-// whose window overhangs the 32-cell row on both sides.  Edge blocks of
-// float32 specs without halo-index maps copy the window's in-grid box the
-// same way, then give every cell outside it the rule: zero/constant the
-// boundary value, replicate the clamped in-grid cell (copied in shared
-// memory), periodic the wrapped grid cell (a 4-byte cp.async each).  Other
-// edge blocks load one cell at a time with the rule folded into the index
-// (zero/constant: a select, replicate: clamp, periodic: wrap).  After each
-// stage of an edge block, zero/constant cells outside the grid take the
-// boundary value and replicate cells copy the clamped in-grid cell.  That
-// cell lies between the cell and the tile on every axis, hence inside the
-// region (tiles start inside the grid).
+// Boundary rule.  A block loads its input windows in one of three ways.
+// (1) One tensor copy a window: in a launch of a 2-D or 3-D float32 spec
+// without halo-index maps, of radius 1 or more, whose grid rows and x
+// tiles are a multiple of 4 cells,
+// whose copy box (the window, its rows at the pitch) spans at most 256
+// cells an axis and whose inputs lie 16-byte aligned
+// (kernels/tiling.py::round_plan and tma_windows count the windows, the
+// launch decides), thread 0 issues one cp.async.bulk.tensor per window
+// through a 4-D tensor map (x, y, z, batch) the launch encodes, and every
+// thread waits on one mbarrier for the bytes.  The copy computes every
+// address, negative ones on an edge too, and fills every cell outside the
+// grid with zeros: the zero rule; in an edge block, constant then writes
+// the boundary value and replicate copies the clamped in-grid cell to the
+// cells outside the window's in-grid box.  A box starts on a 16-byte unit
+// of the grid's row, so it starts up to 3 cells before the window and a
+// short pass fills the row ends past it (sasa_load_tma).  Every block
+// loads so, but a periodic edge block.
+// (2) Periodic edge blocks, and every block of a launch that cannot take
+// the copy, copy the window's in-grid box (an interior block's whole
+// window) row by row with cp.async, 16, 8 or 4 bytes as the rows'
+// alignment allows, then give every cell outside it the rule: zero/
+// constant the boundary value, replicate the clamped in-grid cell (copied
+// in shared memory), periodic the wrapped grid cell (a 4-byte cp.async
+// each).  (3) bfloat16 specs, and edge blocks of specs with halo-index
+// maps, load one cell at a time with the rule folded into the index
+// (zero/constant: a select, replicate: clamp, periodic: wrap); interior
+// blocks of specs with halo-index maps copy rows as in (2).  Interior
+// blocks, whose whole window lies inside the grid, run no per-cell grid
+// test, fixup pass or barrier after a stage.  They are 85-86% of the
+// blocks of JACOBI2D 9720x1024 on 64x64 and 128x64 tiles, and none of
+// HEAT3D 9720x32x32 on 16x8x32 tiles, whose window overhangs the 32-cell
+// row on both sides.  After each stage of an edge block, zero/constant
+// cells outside the grid take the boundary value and replicate cells copy
+// the clamped in-grid cell.  That cell lies between the cell and the tile
+// on every axis, hence inside the region (tiles start inside the grid).
 //
 // Streamed halo-index maps (bucketed replicate serving).  Each map holds,
 // per cell, the grid coordinate along its axis that the cell copies from:
@@ -123,13 +142,18 @@
 // tile once; keeping s iterations in shared memory divides the HBM traffic
 // per iteration by s, at the cost of the trapezoid's redundant updates
 // (for a T x T tile, sum_k (T + 2k r)^2 / (s T^2) per useful update).  At
-// s = 1 the kernel is bound by HBM bytes.  At depth it is bound by the
-// instructions it issues per cell update: shared loads, index arithmetic,
-// the edge test and the arithmetic of the stage.  The strip walk keeps the
-// first three to a fraction of a cell's taps (the stage's arithmetic
-// stays; a division by a constant is a reciprocal with one correction,
-// kernels/division.py); the ranker prices the updates of the regions
-// above.
+// s = 1 the kernel is bound by HBM bytes.  The tensor copy moves a window
+// with one instruction: no thread spends registers or instructions on its
+// addresses, its alignment or its zero cells, and a row of any alignment
+// moves at the copy engine's rate (row copies fall to 4 or 8 bytes where
+// a window's rows start off a 16-byte boundary, as every HEAT3D edge
+// block's and the 2-D s = 1 windows' do).  At depth the kernel is bound by
+// the instructions it issues per cell update: shared loads, index
+// arithmetic, the edge test and the arithmetic of the stage.  The strip
+// walk keeps the first three to a fraction of a cell's taps (the stage's
+// arithmetic stays; a division by a constant is a reciprocal with one
+// correction, kernels/division.py); the ranker prices the updates of the
+// regions above.
 //
 // Numerics: every value lives in shared memory as float; each stage
 // computes in float with one rounding per operation (built with
@@ -140,6 +164,7 @@
 // and the contract is one float32 rounding per operation, bitwise equal
 // between K1 and K2 and across kernel revisions.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -161,8 +186,10 @@ struct SasaGeom {
   int win[3];    // window extent per axis: tile + 2 * halo
   int halo[3];   // halo per axis: s * radius on real axes, 0 on padding
   int st[3];     // shared-memory strides of a framed window (st[2] == 1)
-  int wcells;    // floats of one framed window
+  int wcells;    // floats from one framed window to the next
   int s;         // fused iterations in this round
+  int tma;       // 1 where the launch loads windows by tensor copies
+  int lead;      // floats before a window's first cell in its buffer
   long long cells;  // cells of one grid (batch stride)
 };
 
@@ -170,6 +197,12 @@ struct SasaPtrs {
   const sasa_store_t* in[SASA_N_IN];
   const int32_t* map[SASA_N_HALO > 0 ? SASA_N_HALO : 1];
   sasa_store_t* out;
+};
+
+// One tensor map per floating input, for the tensor copy (unset where the
+// launch does not take it).
+struct SasaMaps {
+  CUtensorMap in[SASA_N_IN];
 };
 
 // The cells one stage updates: a box of window coordinates.
@@ -564,7 +597,7 @@ __device__ __forceinline__ void sasa_cp_async_wait_all() {
 #endif
 }
 
-#if !SASA_STORE_BF16 && SASA_N_HALO == 0
+#if !SASA_STORE_BF16
 // Copies V floats with one cp.async (16, 8 or 4 bytes).
 template <int V>
 __device__ __forceinline__ void sasa_cp_async(float* dst, const float* src) {
@@ -595,6 +628,38 @@ __device__ __forceinline__ void sasa_copy_box(const SasaPtrs& p,
   });
 }
 
+// Copies the box `in` of every input window as sasa_copy_box does, with
+// the widest copy every row's alignment allows.  Issues the copies only:
+// the caller waits for them.
+__device__ __forceinline__ void sasa_copy_rows(const SasaPtrs& p,
+                                               const SasaGeom& g,
+                                               float* const* buf,
+                                               const SasaBox& in,
+                                               long long first) {
+  // Every row's first cell is aligned when the first row's is and the row
+  // strides (grid and shared) keep the alignment; all windows share their
+  // alignment (buffers lie a multiple of 128 bytes apart).
+  const uintptr_t s0 =
+      (uintptr_t)(buf[0] + sasa_cell(g, in.lo[0], in.lo[1], in.lo[2]));
+  bool a16 = g.n[2] % 4 == 0 && in.ext[2] % 4 == 0 && g.st[1] % 4 == 0 &&
+             (s0 & 15) == 0;
+  bool a8 = g.n[2] % 2 == 0 && in.ext[2] % 2 == 0 && g.st[1] % 2 == 0 &&
+            (s0 & 7) == 0;
+#pragma unroll
+  for (int i = 0; i < SASA_N_IN; ++i) {
+    a16 = a16 && ((uintptr_t)(p.in[i] + first) & 15) == 0;
+    a8 = a8 && ((uintptr_t)(p.in[i] + first) & 7) == 0;
+  }
+  if (a16)
+    sasa_copy_box<4>(p, g, buf, in, first);
+  else if (a8)
+    sasa_copy_box<2>(p, g, buf, in, first);
+  else
+    sasa_copy_box<1>(p, g, buf, in, first);
+}
+#endif
+
+#if !SASA_STORE_BF16 && SASA_N_HALO == 0
 // Calls f(z, y, x, c) for every window cell outside the box `in`: per real
 // axis the slabs below and above it, spanning `in` on the axes before and
 // the whole window on the axes after.
@@ -618,15 +683,9 @@ __device__ __forceinline__ void sasa_for_outside(const SasaBox& in,
   }
 }
 
-// Load every input window of an edge block: the window's in-grid box as
-// row copies (as an interior block loads its window), then the boundary
-// rule on the cells outside it.  Equal, cell for cell, to the per-cell
-// load with the rule folded into the index.
-__device__ __forceinline__ void sasa_load_edge(const SasaPtrs& p,
-                                               const SasaGeom& g,
-                                               float* const* buf,
-                                               const int* org,
-                                               long long base) {
+// The window's in-grid box, in window coordinates.
+__device__ __forceinline__ SasaBox sasa_in_box(const SasaGeom& g,
+                                               const int* org) {
   SasaBox in;
 #pragma unroll
   for (int d = 0; d < 3; ++d) {
@@ -634,46 +693,53 @@ __device__ __forceinline__ void sasa_load_edge(const SasaPtrs& p,
     const int end = g.n[d] - org[d];
     in.ext[d] = (end < g.win[d] ? end : g.win[d]) - in.lo[d];
   }
+  return in;
+}
+
+// Gives every window cell outside the in-grid box `in` the boundary rule:
+// zero/constant the boundary value, replicate the clamped in-grid cell
+// (whose copy has landed).  Not for the periodic rule.
+__device__ __forceinline__ void sasa_fill_outside(const SasaBox& in,
+                                                  const SasaGeom& g,
+                                                  float* const* buf) {
+  sasa_for_outside(in, g, [&](int z, int y, int x, int c) {
+    if (SASA_BOUNDARY <= 1) {
+#pragma unroll
+      for (int i = 0; i < SASA_N_IN; ++i)
+        buf[i][c] = (SASA_BOUNDARY == 0) ? 0.0f : SASA_BVALUE;
+    } else {
+      const int t = sasa_cell(
+          g, sasa_clamp(z, in.lo[0], in.lo[0] + in.ext[0] - 1),
+          sasa_clamp(y, in.lo[1], in.lo[1] + in.ext[1] - 1),
+          sasa_clamp(x, in.lo[2], in.lo[2] + in.ext[2] - 1));
+#pragma unroll
+      for (int i = 0; i < SASA_N_IN; ++i) buf[i][c] = buf[i][t];
+    }
+  });
+}
+
+// Load every input window by row copies: the window's in-grid box (the
+// whole window in an interior block), then the boundary rule on the cells
+// outside it.  Equal, cell for cell, to the per-cell load with the rule
+// folded into the index.
+__device__ __forceinline__ void sasa_load_box(const SasaPtrs& p,
+                                              const SasaGeom& g,
+                                              float* const* buf,
+                                              const int* org,
+                                              long long base) {
+  const SasaBox in = sasa_in_box(g, org);
   const long long first =
       base + ((long long)(org[0] + in.lo[0]) * g.n[1] + org[1] + in.lo[1]) *
                  g.n[2] + org[2] + in.lo[2];
-  const int c0 = sasa_cell(g, in.lo[0], in.lo[1], in.lo[2]);
-  // Every row's first cell is aligned when the first row's is and the row
-  // strides (grid and shared) keep the alignment.
-  bool a16 = g.n[2] % 4 == 0 && in.ext[2] % 4 == 0 && g.st[1] % 4 == 0 &&
-             c0 % 4 == 0;
-  bool a8 = g.n[2] % 2 == 0 && in.ext[2] % 2 == 0 && g.st[1] % 2 == 0 &&
-            c0 % 2 == 0;
-#pragma unroll
-  for (int i = 0; i < SASA_N_IN; ++i) {
-    a16 = a16 && ((uintptr_t)(p.in[i] + first) & 15) == 0;
-    a8 = a8 && ((uintptr_t)(p.in[i] + first) & 7) == 0;
-  }
-  if (a16)
-    sasa_copy_box<4>(p, g, buf, in, first);
-  else if (a8)
-    sasa_copy_box<2>(p, g, buf, in, first);
-  else
-    sasa_copy_box<1>(p, g, buf, in, first);
+  sasa_copy_rows(p, g, buf, in, first);
 #if SASA_BOUNDARY <= 1
-  sasa_for_outside(in, g, [&](int, int, int, int c) {
-#pragma unroll
-    for (int i = 0; i < SASA_N_IN; ++i)
-      buf[i][c] = (SASA_BOUNDARY == 0) ? 0.0f : SASA_BVALUE;
-  });
+  sasa_fill_outside(in, g, buf);
   sasa_cp_async_wait_all();
 #elif SASA_BOUNDARY == 2
   // The clamped cell lies in `in`: wait for its copy.
   sasa_cp_async_wait_all();
   __syncthreads();
-  sasa_for_outside(in, g, [&](int z, int y, int x, int c) {
-    const int t = sasa_cell(
-        g, sasa_clamp(z, in.lo[0], in.lo[0] + in.ext[0] - 1),
-        sasa_clamp(y, in.lo[1], in.lo[1] + in.ext[1] - 1),
-        sasa_clamp(x, in.lo[2], in.lo[2] + in.ext[2] - 1));
-#pragma unroll
-    for (int i = 0; i < SASA_N_IN; ++i) buf[i][c] = buf[i][t];
-  });
+  sasa_fill_outside(in, g, buf);
 #else
   sasa_for_outside(in, g, [&](int z, int y, int x, int c) {
     const long long src =
@@ -687,58 +753,125 @@ __device__ __forceinline__ void sasa_load_edge(const SasaPtrs& p,
   sasa_cp_async_wait_all();
 #endif
 }
+
+// Load every input window by one tensor copy each (sm_90): thread 0 arms
+// the mbarrier `bar` with the boxes' bytes and issues the copies in batch
+// entry blockIdx.z; every thread waits for the barrier's first phase.
+// The copy starts a box on a 16-byte unit of the grid's row only, so the
+// box starts g.lead cells before the window, at the 128-byte aligned
+// start of the window's buffer, and spans a row at the pitch (st[1]).
+// The last win[2] + lead - st[1] cells of each window row (at most 3) lie
+// past the box, where the next row's (the next buffer's) first lead
+// cells, which hold no window cell, share their shared memory; the last
+// buffer's last row, whose tail would pass the allocation, is never read
+// or written (see `bar` in sasa_tile_body).  Once the copy has landed, a
+// tail's grid cell is copied by cp.async and a cell outside the grid
+// takes the zero/constant value.  Cells outside the grid arrive as zeros;
+// in an edge block, constant and replicate then impose their rule on
+// them.
+template <bool INTERIOR>
+__device__ __forceinline__ void sasa_load_tma(const SasaPtrs& p,
+                                              const SasaMaps& tm,
+                                              const SasaGeom& g,
+                                              float* const* buf,
+                                              uint64_t* bar, const int* org,
+                                              long long base) {
+#ifdef __CUDA_ARCH__
+  const unsigned mb = (unsigned)__cvta_generic_to_shared(bar);
+  if (threadIdx.x == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(mb)
+                 : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    // A box is win[0] x win[1] rows at the pitch: st[0] * win[0] cells.
+    asm volatile(
+        "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(mb),
+        "r"(SASA_N_IN * g.st[0] * g.win[0] * (int)sizeof(float))
+        : "memory");
+#pragma unroll
+    for (int i = 0; i < SASA_N_IN; ++i)
+      asm volatile(
+          "cp.async.bulk.tensor.4d.shared::cluster.global.tile"
+          ".mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+          ::"r"((unsigned)__cvta_generic_to_shared(buf[i] - g.lead)),
+          "l"(reinterpret_cast<uint64_t>(&tm.in[i])), "r"(org[2] - g.lead),
+          "r"(org[1]), "r"(org[0]), "r"((int)blockIdx.z), "r"(mb)
+          : "memory");
+  }
+  // No thread polls the barrier before thread 0 has set it up.
+  __syncthreads();
+  unsigned done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(mb)
+        : "memory");
+#endif
+  // The row tails, once the copy has written the cells they share.
+  const int tail = g.win[2] + g.lead - g.st[1];
+  if (tail > 0) {
+    sasa_for_box(g.win[0], g.win[1], tail, [&](int z, int y, int q) {
+      const int x = g.win[2] - tail + q;
+      const int gz = org[0] + z, gy = org[1] + y, gx = org[2] + x;
+      const int c = sasa_cell(g, z, y, x);
+      if (INTERIOR || sasa_in_grid(gz, gy, gx, g)) {
+        const long long src = base + ((long long)gz * g.n[1] + gy) * g.n[2] + gx;
+#pragma unroll
+        for (int i = 0; i < SASA_N_IN; ++i)
+          sasa_cp_async4(buf[i] + c, p.in[i] + src);
+      } else if (SASA_BOUNDARY <= 1) {
+#pragma unroll
+        for (int i = 0; i < SASA_N_IN; ++i)
+          buf[i][c] = (SASA_BOUNDARY == 0) ? 0.0f : SASA_BVALUE;
+      }
+    });
+    sasa_cp_async_wait_all();
+  }
+#if SASA_BOUNDARY == 1
+  if (!INTERIOR) sasa_fill_outside(sasa_in_box(g, org), g, buf);
+#elif SASA_BOUNDARY == 2
+  // The clamped cell may be a row tail another thread copied.
+  if (!INTERIOR) {
+    __syncthreads();
+    sasa_fill_outside(sasa_in_box(g, org), g, buf);
+  }
+#endif
+}
 #endif
 
-// Load every input window.  Interior blocks copy rows; edge blocks of
-// float32 specs without halo-index maps copy their in-grid box
-// (sasa_load_edge); other edge blocks, and every block of a bfloat16
-// spec, fold the boundary rule into the index of every cell.
+// Load every input window (see "Boundary rule"): by tensor copies where
+// the launch takes them (periodic edge blocks excepted), else by row
+// copies of the in-grid box (sasa_load_box) for float32 specs without
+// halo-index maps; interior blocks of other float32 specs copy rows too;
+// other blocks fold the boundary rule into the index of every cell.
 template <bool INTERIOR>
 __device__ __forceinline__ void sasa_load_windows(const SasaPtrs& p,
                                                   const SasaGeom& g,
+                                                  const SasaMaps& tm,
                                                   float* const* buf,
+                                                  uint64_t* bar,
                                                   const int* org,
                                                   long long base) {
-  const SasaBox win = sasa_window(g);
+#if !SASA_STORE_BF16 && SASA_N_HALO == 0
+  if (g.tma && (INTERIOR || SASA_BOUNDARY != 3))
+    sasa_load_tma<INTERIOR>(p, tm, g, buf, bar, org, base);
+  else
+    sasa_load_box(p, g, buf, org, base);
+#else
 #if !SASA_STORE_BF16
   if (INTERIOR) {
-    // Rows of the window are contiguous in the grid; offsets relative to
-    // the window's first cell fit in 32 bits (checked by the launch).
-    const long long first =
-        base + ((long long)org[0] * g.n[1] + org[1]) * g.n[2] + org[2];
-    const int plane = g.n[1] * g.n[2];
-    bool aligned = SASA_FRAME == 0 && g.n[2] % 4 == 0 && g.win[2] % 4 == 0 &&
-                   first % 4 == 0;
-#pragma unroll
-    for (int i = 0; i < SASA_N_IN; ++i)
-      aligned = aligned && ((uintptr_t)(p.in[i] + first) & 15) == 0;
-    if (aligned) {
-      sasa_for_box(g.win[0], g.win[1], g.win[2] / 4, [&](int z, int y, int q) {
-        const int src = z * plane + y * g.n[2] + 4 * q;
-        const int c = sasa_cell(g, z, y, 4 * q);
-#pragma unroll
-        for (int i = 0; i < SASA_N_IN; ++i)
-          sasa_cp_async16(buf[i] + c, p.in[i] + first + src);
-      });
-    } else {
-      sasa_for_region(win, g, [&](int z, int y, int x, int c) {
-        const int src = z * plane + y * g.n[2] + x;
-#pragma unroll
-        for (int i = 0; i < SASA_N_IN; ++i)
-          sasa_cp_async4(buf[i] + c, p.in[i] + first + src);
-      });
-    }
+    // Offsets relative to the window's first cell fit in 32 bits (checked
+    // by the launch).
+    sasa_copy_rows(p, g, buf, sasa_window(g),
+                   base + ((long long)org[0] * g.n[1] + org[1]) * g.n[2] +
+                       org[2]);
     sasa_cp_async_wait_all();
     return;
   }
 #endif
-#if !SASA_STORE_BF16 && SASA_N_HALO == 0
-  if (!INTERIOR) {
-    sasa_load_edge(p, g, buf, org, base);
-    return;
-  }
-#endif
-  sasa_for_region(win, g, [&](int z, int y, int x, int c) {
+  sasa_for_region(sasa_window(g), g, [&](int z, int y, int x, int c) {
     const int gz = org[0] + z, gy = org[1] + y, gx = org[2] + x;
     const bool in = INTERIOR || sasa_in_grid(gz, gy, gx, g);
     const long long src =
@@ -752,18 +885,28 @@ __device__ __forceinline__ void sasa_load_windows(const SasaPtrs& p,
       buf[i][c] = v;
     }
   });
+#endif
 }
 
 template <bool INTERIOR>
 __device__ __forceinline__ void sasa_tile_body(const SasaPtrs& p,
                                                const SasaGeom& g,
+                                               const SasaMaps& tm,
                                                float* smem, const int* tc,
                                                const int* org,
                                                long long base) {
   float* buf[SASA_NBUF];
 #pragma unroll
-  for (int i = 0; i < SASA_NBUF; ++i) buf[i] = smem + i * g.wcells;
-  // Per-(entry, tile) belt bounds per kernel axis, after the windows.
+  for (int i = 0; i < SASA_NBUF; ++i) buf[i] = smem + i * g.wcells + g.lead;
+  // The tensor copy's mbarrier: 16 bytes into the last buffer, inside the
+  // first row (outermost coordinate 0) of the window that iterations
+  // write, which no stage reads or writes: in 2-D and 3-D with a radius
+  // r >= 1 every stage's region, and the taps that read it, start r cells
+  // into the window (the row tails of the buffer before it reach 12 bytes
+  // in at most; see sasa_load_tma).
+  uint64_t* bar =
+      reinterpret_cast<uint64_t*>(smem + (SASA_NBUF - 1) * g.wcells + 4);
+  // After the windows: the per-(entry, tile) belt bounds per kernel axis.
   int* lo = reinterpret_cast<int*>(smem + SASA_NBUF * g.wcells);
   int* hi = lo + 3;
   bool full[3] = {false, false, false};
@@ -784,7 +927,7 @@ __device__ __forceinline__ void sasa_tile_body(const SasaPtrs& p,
   __syncthreads();
 #endif
 
-  sasa_load_windows<INTERIOR>(p, g, buf, org, base);
+  sasa_load_windows<INTERIOR>(p, g, tm, buf, bar, org, base);
 #if SASA_N_HALO > 0
   // Belt bounds: min and max over the whole window of each map's
   // block-local target (the maps as loaded, with the same fold).
@@ -877,8 +1020,9 @@ __device__ __forceinline__ void sasa_tile_body(const SasaPtrs& p,
 }
 
 __global__ void __launch_bounds__(SASA_THREADS)
-sasa_tile_kernel(SasaPtrs p, SasaGeom g) {
-  extern __shared__ float sasa_smem[];
+sasa_tile_kernel(SasaPtrs p, SasaGeom g, const __grid_constant__ SasaMaps tm) {
+  // 128-byte aligned: a tensor copy's destination.
+  extern __shared__ __align__(128) float sasa_smem[];
   int t = blockIdx.x;
   int tc[3];
   tc[2] = t % g.ntile[2]; t /= g.ntile[2];
@@ -893,19 +1037,77 @@ sasa_tile_kernel(SasaPtrs p, SasaGeom g) {
   }
   const long long base = (long long)blockIdx.z * g.cells;
   if (interior)
-    sasa_tile_body<true>(p, g, sasa_smem, tc, org, base);
+    sasa_tile_body<true>(p, g, tm, sasa_smem, tc, org, base);
   else
-    sasa_tile_body<false>(p, g, sasa_smem, tc, org, base);
+    sasa_tile_body<false>(p, g, tm, sasa_smem, tc, org, base);
 }
+
+#if !SASA_STORE_BF16 && SASA_N_HALO == 0
+// cuTensorMapEncodeTiled, asked of the driver through the runtime, so the
+// library links nothing beyond the runtime; null where the driver lacks it.
+typedef CUresult (*SasaEncodeTiled)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+static SasaEncodeTiled sasa_encode_tiled() {
+  static SasaEncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<SasaEncodeTiled>(f);
+  }
+  return fn;
+}
+
+// The tensor map of each floating input: the batch of grids as a 4-D
+// float32 tensor (x, y, z, batch), a box of the window with its rows at
+// the pitch, cells outside the tensor read as zeros.  Returns false where
+// the driver refuses one.
+static bool sasa_encode_maps(SasaMaps& tm, const unsigned long long* ins,
+                             const SasaGeom& g, int B) {
+  const SasaEncodeTiled encode = sasa_encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)g.n[2], (cuuint64_t)g.n[1],
+                              (cuuint64_t)g.n[0], (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)g.n[2] * sizeof(float),
+                                 (cuuint64_t)g.n[1] * g.n[2] * sizeof(float),
+                                 (cuuint64_t)g.cells * sizeof(float)};
+  const cuuint32_t box[4] = {(cuuint32_t)g.st[1], (cuuint32_t)g.win[1],
+                             (cuuint32_t)g.win[0], 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  for (int i = 0; i < SASA_N_IN; ++i)
+    if (encode(&tm.in[i], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4,
+               reinterpret_cast<void*>(ins[i]), dims, strides, box, unit,
+               CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+               CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+      return false;
+  return true;
+}
+#endif
 
 // Plain C entry point, bound with ctypes.
 //   ins   host array of SASA_N_IN device pointers (floating inputs)
 //   maps  host array of SASA_N_HALO device pointers (int32 halo-index
 //         maps, (B,) + grid each, in axis order); ignored when 0
 //   out   device pointer of the output, (B,) + grid
-//   geom  host array of 12 ints: B, n0, n1, n2, t0, t1, t2, h0, h1, h2, s,
-//         dynamic shared-memory bytes
-// Returns cudaGetLastError() after the launch (0 on success).
+//   geom  host array of 13 ints: B, n0, n1, n2, t0, t1, t2, h0, h1, h2, s,
+//         dynamic shared-memory bytes, 1 to load windows by tensor copies
+//         (a 2-D or 3-D float32 spec without halo-index maps, radius >= 1,
+//         n2 % 4 == 0, t2 % 4 == 0 or one tile on x, every box axis at
+//         most 256 cells, inputs 16-byte aligned) else 0
+// Returns cudaGetLastError() after the launch (0 on success), or
+// cudaErrorInvalidValue where a tensor map cannot be encoded.
 extern "C" int sasa_launch(const unsigned long long* ins,
                            const unsigned long long* maps, void* out,
                            const int* geom, void* stream) {
@@ -931,18 +1133,34 @@ extern "C" int sasa_launch(const unsigned long long* ins,
     cells *= g.n[d];
     tiles *= g.ntile[d];
   }
+  // Without a frame a row is a whole number of 16-byte units (a tensor
+  // copy's box row), and every window starts on a 128-byte boundary
+  // (kernels/tiling.py::round_plan lays out the same).
   g.st[2] = 1;
-  g.st[1] = framed[2];
-  g.st[0] = framed[1] * framed[2];
-  g.wcells = framed[0] * framed[1] * framed[2];
+  g.st[1] = SASA_FRAME == 0 ? (framed[2] + 3) / 4 * 4 : framed[2];
+  g.st[0] = framed[1] * g.st[1];
+  g.wcells = (framed[0] * g.st[0] + 31) / 32 * 32;
   g.s = geom[10];
   g.cells = cells;
+  g.tma = geom[12];
+  // A launch that takes the tensor copy starts every box on a 16-byte unit
+  // of the grid's row: lead cells before the window, whose origin on x is
+  // -halo[2] modulo 4 in every block (the launch's tiles span a multiple
+  // of 4 cells on x, or the whole row).
+  g.lead = g.tma ? (4 - g.halo[2] % 4) % 4 : 0;
   const int smem = geom[11];
+  SasaMaps tm{};
+#if !SASA_STORE_BF16 && SASA_N_HALO == 0
+  if (g.tma && !sasa_encode_maps(tm, ins, g, B))
+    return (int)cudaErrorInvalidValue;
+#else
+  if (g.tma) return (int)cudaErrorInvalidValue;
+#endif
   cudaError_t err = cudaFuncSetAttribute(
       sasa_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 block(SASA_THREADS, 1, 1);
   dim3 grid((unsigned)tiles, 1, (unsigned)B);
-  sasa_tile_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(p, g);
+  sasa_tile_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(p, g, tm);
   return (int)cudaGetLastError();
 }

@@ -33,9 +33,12 @@ the same two update counts over the ``local`` stages
 floating-input windows and those the taps reach (``.window_cells``,
 ``.reach_cells``), the window cells wrapped round the grid under the
 periodic rule (``.wrapped_cells``), the shared-memory tap loads
-(``.smem_tap_loads``), and the divisions lowered to a reciprocal and
+(``.smem_tap_loads``), the divisions lowered to a reciprocal and
 those left as C ``/`` (``.divides_reciprocal``, ``.divides_ieee``;
-:mod:`repro_torch.kernels.division`).
+:mod:`repro_torch.kernels.division`), and the floating-input windows
+(``.windows``).  Beside the table, ``.windows_tma`` counts the windows
+loaded by one tensor copy each (:func:`~repro_torch.kernels.tiling.tma_windows`,
+0 in a launch that does not take the copy).
 """
 from __future__ import annotations
 
@@ -59,6 +62,7 @@ from repro_torch.kernels.tiling import (
     index_inputs,
     round_plan,
     tap_reach,  # noqa: F401  (stencilbench's tests read it here)
+    tma_windows,
 )
 from repro_torch.trace import span
 
@@ -159,6 +163,7 @@ COUNTERS = {
     "smem_tap_loads": "tap_loads",
     "divides_reciprocal": "divides_reciprocal",
     "divides_ieee": "divides_ieee",
+    "windows": "windows",
 }
 
 
@@ -196,8 +201,12 @@ def launch_tile_kernel(
 
     Floating inputs are passed as the kernel's windows, halo-index maps
     (int32) through their own pointer array; wrap-index maps are consumed
-    by the round loop between rounds and not passed.  Each launch adds
-    ``B`` times the plan's counts to the counters of :data:`COUNTERS`."""
+    by the round loop between rounds and not passed.  The windows are
+    loaded by tensor copies where the plan admits them and every floating
+    input lies 16-byte aligned.  Each launch adds ``B`` times the plan's counts to
+    the counters of :data:`COUNTERS`, and to ``.windows_tma`` those of
+    :func:`~repro_torch.kernels.tiling.tma_windows` where it takes the
+    copy."""
     plan = _launch_plan(spec, s, None if tile is None else tuple(tile))
     dtype = torch_dtype(spec.dtype)
     B = batched[0].shape[0]
@@ -219,13 +228,15 @@ def launch_tile_kernel(
     device = batched[0].device
     with span("sasa.launch.alloc"):
         out = torch.empty(want, dtype=dtype, device=device)
-    geom = (B,) + plan.geom
+    ins = [by_name[n].data_ptr() for n in float_inputs(spec)]
+    copied = tma_windows(spec, plan)
+    tma = copied > 0 and all(p % 16 == 0 for p in ins)
+    geom = (B,) + plan.geom + (int(tma),)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         with span("sasa.launch.enqueue"):
             rc = lib.launch(
-                [by_name[n].data_ptr() for n in float_inputs(spec)],
-                [by_name[n].data_ptr() for n in spec.halo_index_inputs],
+                ins, [by_name[n].data_ptr() for n in spec.halo_index_inputs],
                 out.data_ptr(), geom, stream,
             )
     if rc != 0:
@@ -235,10 +246,12 @@ def launch_tile_kernel(
     counters = vars(launch_tile_kernel)
     for name, count in COUNTERS.items():
         counters[name] += B * getattr(plan, count)
+    if tma:
+        counters["windows_tma"] += B * copied
     return out
 
 
-vars(launch_tile_kernel).update(dict.fromkeys(COUNTERS, 0))
+vars(launch_tile_kernel).update(dict.fromkeys(COUNTERS, 0), windows_tma=0)
 
 
 def stencil_cuda(

@@ -29,6 +29,11 @@ DEFAULT_TILES = {1: (256,), 2: (32, 64), 3: (8, 8, 32)}
 # number of axes (the 1-D kernel walks single cells): the card's best of
 # 4, 6, 8 and 12 at the benchmark's deep picks (PERF.md section 5).
 STRIP_CELLS = {1: 1, 2: 6, 3: 8}
+# Each framed window's buffer starts on a SMEM_ALIGN-byte boundary, where
+# a tensor copy may write it.
+SMEM_ALIGN = 128
+# The most cells a tensor copy's box spans on one axis.
+TMA_BOX_MAX = 256
 
 
 def default_tile(ndim: int, tile_rows: int = 0) -> tuple[int, ...]:
@@ -181,7 +186,8 @@ class RoundPlan(NamedTuple):
     n_tiles: tuple[int, ...]    # per axis
     window: tuple[int, ...]     # the tile and h cells a side
     frame: int                  # zero cells around a window in shared memory
-    framed_cells: int           # of one framed window
+    pitch: int                  # floats of a framed window's row
+    framed_cells: int           # floats from one framed window to the next
     n_buffers: int              # framed windows a block holds
     smem_bytes: int             # a block's dynamic shared memory
     geom: tuple[int, ...]       # the launch's geometry after the batch
@@ -195,6 +201,8 @@ class RoundPlan(NamedTuple):
     window_cells: int           # staged floating-input cells
     reach_cells: int
     wrapped: int                # of them outside the grid, periodic only
+    windows: int                # floating-input windows staged
+    tma: bool                   # a window fits one tensor copy
     tap_loads: int              # shared-memory loads of taps
     flops: int                  # float32 operations of the issued updates
     divides_reciprocal: int     # divisions of the issued updates lowered
@@ -221,7 +229,20 @@ def round_plan(
     the taps reach the cells of the tile widened by ``s`` times
     :func:`tap_reach`.  Under the periodic rule the window cells outside
     the grid are wrapped, each fetched on its own from the opposite side
-    of the grid; under every other rule none is.  Tap loads: the tile
+    of the grid; under every other rule none is.  A window fits one tensor
+    copy (``tma``; the kernel's head comment) where the spec is 2-D or 3-D,
+    float32, without halo-index maps and of radius 1 or more, the grid's
+    rows and the tile (unless one tile spans the row) are a multiple of 4
+    cells on x, so every window starts on x at the same offset from a
+    16-byte unit, and no axis of the copy's
+    box (the window, its rows at ``pitch``) spans more than
+    :data:`TMA_BOX_MAX` cells (:func:`tma_windows` counts the windows so
+    loaded).  Shared memory (``smem_bytes``): the framed
+    windows, rows ``pitch`` floats apart (the framed row rounded up to 4
+    floats where there is no frame) and each window rounded up to
+    :data:`SMEM_ALIGN` bytes, then the belt bounds of halo-index maps.
+    Nothing of the plan depends on the boundary rule but ``wrapped``.
+    Tap loads: the tile
     count times :func:`tap_loads` of the regions.  Divisions: each issued
     update of a stage times that stage's divisions of each lowering
     (:func:`~repro_torch.kernels.division.division_counts`)."""
@@ -232,7 +253,11 @@ def round_plan(
     tiles = math.prod(n_tiles)
     window = tuple(t + 2 * h for t in tile)
     frame = frame_width(spec)
-    framed_cells = math.prod(w + 2 * frame for w in window)
+    framed = [w + 2 * frame for w in window]
+    # a tensor copy writes rows of a multiple of 16 bytes
+    pitch = framed[-1] if frame else -(-framed[-1] // 4) * 4
+    align = SMEM_ALIGN // 4
+    framed_cells = -(-math.prod(framed[:-1]) * pitch // align) * align
     floats = len(float_inputs(spec))
     n_buffers = floats + len(spec.local_stages) + 1
     belt = 6 * 4 if spec.halo_index_inputs else 0
@@ -264,7 +289,8 @@ def round_plan(
         )
         wrapped = floats * (tiles * math.prod(window) - in_grid)
     return RoundPlan(
-        tile, h, n_tiles, window, frame, framed_cells, n_buffers, smem, geom,
+        tile, h, n_tiles, window, frame, pitch, framed_cells, n_buffers, smem,
+        geom,
         issued=tiles * sum(cells),
         useful=math.prod(grid) * len(regions),
         tiles=tiles,
@@ -274,6 +300,14 @@ def round_plan(
         window_cells=tiles * floats * math.prod(window),
         reach_cells=tiles * floats * reach,
         wrapped=wrapped,
+        windows=tiles * floats,
+        # a 2-D or 3-D float32 spec without halo maps, with a halo (the
+        # copy's mbarrier sits in a row no stage touches), whose grid rows
+        # and tiles are whole 16-byte units on x and whose box fits the copy
+        tma=(spec.dtype == "float32" and not spec.halo_index_inputs
+             and spec.ndim >= 2 and h > 0
+             and grid[-1] % 4 == 0 and (tile[-1] % 4 == 0 or n_tiles[-1] == 1)
+             and max(window[:-1] + (pitch,)) <= TMA_BOX_MAX),
         tap_loads=tiles * tap_loads(spec, regions),
         flops=tiles * sum(c * ops[reg.stage] for c, reg in zip(cells, regions)),
         divides_reciprocal=tiles * sum(
@@ -283,11 +317,24 @@ def round_plan(
     )
 
 
+def tma_windows(spec: StencilSpec, plan: RoundPlan) -> int:
+    """Floating-input windows of one grid that a launch of ``plan`` loads
+    by one tensor copy each, where it takes the copy: every tile's where
+    a window fits the copy, but only the tiles inside the grid under the
+    periodic rule (an edge tile wraps its halo cell by cell)."""
+    if not plan.tma:
+        return 0
+    if spec.boundary.kind == "periodic":
+        return plan.windows // plan.tiles * (plan.tiles - plan.edge_tiles)
+    return plan.windows
+
+
 def smem_bytes_estimate(
     spec: StencilSpec, s: int, tile: Sequence[int] | None = None
 ) -> int:
     """Dynamic shared memory of one thread block: one framed float window
-    per floating input, per local stage and for the next iterate, plus the
-    per-axis belt bounds of a spec with halo-index maps.  The int32 index
-    maps themselves are read from global memory and never staged."""
+    per floating input, per local stage and for the next iterate, each
+    aligned for a tensor copy, plus the per-axis belt bounds of a spec
+    with halo-index maps.  The int32 index maps themselves are read from
+    global memory and never staged."""
     return round_plan(spec, s, None if tile is None else tuple(tile)).smem_bytes

@@ -103,9 +103,15 @@ STRIP_CASES = [
 ]
 
 
-def _strip_spec(name, boundary, dtype):
+# Rows of 45 or 41 cells take the row copies; 48 or 40 cells make rows of
+# whole 16-byte units, where float32 windows take the tensor copy.
+STRIP_GRIDS = {"rows-odd": ((70, 45), (37, 20, 41)),
+               "rows-16-byte": ((70, 48), (37, 20, 40))}
+
+
+def _strip_spec(name, boundary, dtype, grid="rows-odd"):
     three = name in stencils.BENCHMARKS_3D
-    spec = lower(stencils.get(name, shape=(37, 20, 41) if three else (70, 45),
+    spec = lower(stencils.get(name, shape=STRIP_GRIDS[grid][three],
                               iterations=4)).spec
     if boundary is not None:
         spec = dataclasses.replace(spec, boundary=Boundary(
@@ -129,17 +135,20 @@ def strip_kernels():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("grid", list(STRIP_GRIDS))
 @pytest.mark.parametrize("name, boundary, dtype", STRIP_CASES,
                          ids=["-".join(str(x) for x in c) for c in STRIP_CASES])
 def test_strip_walk_is_bitwise_the_plain_version_on_card(
-        cuda_device, strip_kernels, name, boundary, dtype):
+        cuda_device, strip_kernels, name, boundary, dtype, grid):
     """K2 against the plain version (``blockops.fused_iterations_on_block``
     on the CPU), bitwise, at s = 1, 2, 8.  2-D on 13x64 tiles (walk
     extents 13 + 2e: a short strip in every column) and the default tile;
     3-D on 5x8x32 tiles (one short strip a column, edge blocks on every
-    axis) and the default tile; a grid of 70x45 or 37x20x41 leaves partial
-    tiles at every far edge."""
-    spec = _strip_spec(name, boundary, dtype)
+    axis) and the default tile; a grid of 70x45 or 37x20x41 (row copies)
+    or 70x48 or 37x20x40 (float32: the tensor copy, but in periodic edge
+    blocks, here all) leaves partial tiles at every far edge.  The
+    launches count the windows of the tensor copy on ``.windows_tma``."""
+    spec = _strip_spec(name, boundary, dtype, grid)
     rng = np.random.default_rng(16)
     arrays = {
         n: torch.from_numpy(rng.standard_normal((2,) + tuple(spec.shape))
@@ -148,14 +157,22 @@ def test_strip_walk_is_bitwise_the_plain_version_on_card(
     }
     on_card = {n: a.to(cuda_device) for n, a in arrays.items()}
     three = spec.ndim == 3
+    copied = 0
     for tile in ((5, 8, 32) if three else (13, 64),
                  tiling.default_tile(spec.ndim)):
         for s in (1, 2, 8):
             if tiling.smem_bytes_estimate(spec, s, tile) > DEFAULT_GPU.smem_per_block:
                 continue
+            before = stencil.launch_tile_kernel.windows_tma
             got = pipeline.stencil_cuda_batched(spec, on_card, s, tile).cpu()
+            moved = stencil.launch_tile_kernel.windows_tma - before
+            plan = tiling.round_plan(spec, s, tuple(tile))
+            assert moved == 2 * tiling.tma_windows(spec, plan), (s, tile)
+            copied += moved
             want = stencil.tiled_round(spec, arrays, s, tile)
             assert torch.equal(got, want), (spec.name, boundary, s, tile)
+    assert (copied > 0) == (grid == "rows-16-byte" and dtype == "float32"
+                            and spec.boundary.kind != "periodic")
 
 
 # A 1-D spec: the kernel walks its stages cell by cell.
@@ -259,6 +276,33 @@ def test_periodic_heat3d_at_the_benchmarks_pick_on_card(cuda_device):
         bound = numerics.tolerance_for(spec, iterations, {"in_1": x[b].numpy()})
         err = float((got[b].double() - want[b].double()).abs().max())
         assert err <= bound, (b, err, bound)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name, shape, s, tile", [
+    ("heat3d_periodic", (40, 24, 96), 1, (8, 8, 32)),
+    ("heat3d_periodic", (40, 24, 96), 2, (8, 8, 32)),
+    ("jacobi2d", (400, 256), 1, (128, 64)),
+    ("jacobi2d", (256, 200), 3, (64, 64)),
+])
+def test_periodic_interior_blocks_take_the_tensor_copy_on_card(
+        cuda_device, name, shape, s, tile):
+    """Under the periodic rule the blocks inside the grid take the tensor
+    copy while the edge blocks copy rows and wrap, with every window
+    ``(-h) mod 4`` floats into its buffer: bitwise the plain version, and
+    ``.windows_tma`` grows by the interior blocks' windows alone."""
+    spec = dataclasses.replace(lower(stencils.get(name, shape=shape)).spec,
+                               boundary=Boundary("periodic"))
+    plan = tiling.round_plan(spec, s, tile)
+    assert 0 < plan.tiles - plan.edge_tiles < plan.tiles and plan.h % 4
+    rng = np.random.default_rng(19)
+    x = torch.from_numpy(rng.standard_normal((3,) + shape).astype(np.float32))
+    before = stencil.launch_tile_kernel.windows_tma
+    got = pipeline.stencil_cuda_batched(spec, {"in_1": x.to(cuda_device)},
+                                        s, tile).cpu()
+    assert (stencil.launch_tile_kernel.windows_tma - before
+            == 3 * (plan.tiles - plan.edge_tiles))
+    assert torch.equal(got, stencil.tiled_round(spec, {"in_1": x}, s, tile))
 
 
 @pytest.mark.gpu

@@ -237,7 +237,9 @@ def test_plan_blocks_and_smem_estimate():
     assert g.tile == (32, 64) and g.h == 4
     assert g.window == (40, 72) and g.frame == 0
     assert g.n_tiles == (304, 16) and g.tiles == 304 * 16
-    # two inputs + the next iterate, as float
+    # two inputs + the next iterate, as float (72-float rows, 11,520-byte
+    # windows: whole 128-byte units)
+    assert g.pitch == 72 and g.framed_cells == 40 * 72
     assert tiling.smem_bytes_estimate(spec, 4) == 3 * 40 * 72 * 4
     assert g.smem_bytes == 3 * 40 * 72 * 4 and g.n_buffers == 3
     assert tiling.round_plan(spec, 4, (64, 64)).window == (72, 72)
@@ -257,14 +259,16 @@ def test_plan_blocks_and_smem_estimate():
     assert out.shape == grid.shape
     # a replicate bucket spec stages the data and the mask as float
     # windows (+ the next iterate), each inside a zero frame of the largest
-    # stage radius; its two int32 halo maps are read from global memory,
-    # and only the per-axis belt bounds sit in shared memory
+    # stage radius (rows of 74 floats, not rounded: 42 x 74 floats rounded
+    # up to 128 bytes); its two int32 halo maps are read from global
+    # memory, and only the per-axis belt bounds sit in shared memory
     jac = lower(_port(ref_stencils.get("jacobi2d", shape=(60, 60)))).spec
     rep = bucket_plan(dataclasses.replace(jac, boundary=Boundary("replicate")),
                       (64, 64)).mspec
     assert rep.num_inputs == 4 and tiling.round_plan(rep, 4).n_buffers == 3
     assert tiling.round_plan(rep, 4).frame == 1
-    assert tiling.smem_bytes_estimate(rep, 4) == 3 * 42 * 74 * 4 + 6 * 4
+    assert tiling.round_plan(rep, 4).pitch == 74
+    assert tiling.smem_bytes_estimate(rep, 4) == 3 * 12544 + 6 * 4
     wrap = bucket_plan(dataclasses.replace(jac, boundary=Boundary("periodic")),
                        (64, 64), wrap_rounds=2).mspec
     assert tiling.smem_bytes_estimate(wrap, 2, (32, 32)) == \

@@ -150,23 +150,46 @@ def test_edge_tiles_are_counted_tile_by_tile(name, shape, s, tile, tiles,
 
 class _StubLib:
     def launch(self, ins, maps, out, geom, stream):
+        self.geom = tuple(geom)
         return 0
 
 
 class _OnCard:
-    """A CPU tensor that says it lies on the card."""
+    """A CPU tensor that says it lies on the card, ``offset`` bytes past
+    its storage."""
 
     device = torch.device("cuda")
 
-    def __init__(self, t):
-        self.t = t
+    def __init__(self, t, offset=0):
+        self.t, self.offset = t, offset
         self.dtype, self.shape = t.dtype, t.shape
 
     def is_contiguous(self):
         return True
 
     def data_ptr(self):
-        return self.t.data_ptr()
+        return self.t.data_ptr() + self.offset
+
+
+@pytest.fixture
+def stub_launch(monkeypatch):
+    """``launch_tile_kernel`` without a card: the library and the CUDA
+    calls stubbed.  Gives the stub library, which keeps the last geom."""
+    fake = types.SimpleNamespace(
+        int32=torch.int32,
+        empty=lambda shape, dtype, device: torch.empty(shape, dtype=dtype),
+        cuda=types.SimpleNamespace(
+            device=lambda d: contextlib.nullcontext(),
+            current_stream=lambda d: types.SimpleNamespace(cuda_stream=0)))
+    monkeypatch.setattr(stencil, "torch", fake)
+    lib = _StubLib()
+    monkeypatch.setattr(stencil.cuda_build, "get_kernel", lambda spec: lib)
+    return lib
+
+
+def _grids(batch, shape, offset=0):
+    t = torch.empty((batch,) + shape[:1] + (1,) * (len(shape) - 1))
+    return _OnCard(t.expand((batch,) + shape), offset)
 
 
 @pytest.mark.parametrize("name, shape, s, tile, batch", [
@@ -178,25 +201,16 @@ class _OnCard:
     ("heat3d_periodic", (40, 24, 30), 4, (5, 8, 32), 3),
 ])
 def test_a_launch_adds_its_batch_times_the_plan_to_the_counters(
-        monkeypatch, name, shape, s, tile, batch):
+        monkeypatch, stub_launch, name, shape, s, tile, batch):
     """Without a card: the library and the CUDA calls stubbed, two
     launches of ``batch`` grids add 2 x batch x the plan's counts."""
-    fake = types.SimpleNamespace(
-        int32=torch.int32,
-        empty=lambda shape, dtype, device: torch.empty(shape, dtype=dtype),
-        cuda=types.SimpleNamespace(
-            device=lambda d: contextlib.nullcontext(),
-            current_stream=lambda d: types.SimpleNamespace(cuda_stream=0)))
-    monkeypatch.setattr(stencil, "torch", fake)
-    monkeypatch.setattr(stencil.cuda_build, "get_kernel",
-                        lambda spec: _StubLib())
     spec = stencils.get(name, shape=shape)
-    grids = _OnCard(torch.empty((batch,) + shape[:1] + (1,) * (len(shape) - 1))
-                    .expand((batch,) + shape))
+    grids = _grids(batch, shape)
     f = stencil.launch_tile_kernel
     names = ("updates_issued", "updates_useful", "blocks", "edge_blocks",
              "local_updates_issued", "local_updates_useful", "window_cells",
-             "reach_cells", "smem_tap_loads", "wrapped_cells")
+             "reach_cells", "smem_tap_loads", "wrapped_cells", "windows",
+             "windows_tma")
     for n in names:    # no launch of this test outlives it
         monkeypatch.setattr(f, n, 7)
     for _ in range(2):
@@ -207,8 +221,38 @@ def test_a_launch_adds_its_batch_times_the_plan_to_the_counters(
                                 plan.edge_tiles, plan.local_issued,
                                 plan.local_useful, plan.window_cells,
                                 plan.reach_cells, plan.tap_loads,
-                                plan.wrapped)]
+                                plan.wrapped, plan.windows,
+                                tiling.tma_windows(spec, plan))]
     assert (plan.wrapped > 0) == (name == "heat3d_periodic")
+    # every window of the zero rule's cells takes the tensor copy, none of
+    # the periodic cell's (every block an edge block)
+    assert stub_launch.geom == (batch,) + plan.geom + (
+        int(name != "heat3d_periodic"),)
+
+
+@pytest.mark.parametrize("name, shape, offset, takes", [
+    ("heat3d", (40, 24, 32), 0, True),
+    ("heat3d", (40, 24, 32), 4, False),       # off a 16-byte boundary
+    ("heat3d", (40, 24, 32), 16, True),
+    ("heat3d", (40, 24, 30), 0, False),       # rows of 120 bytes
+    ("heat3d_periodic", (40, 24, 32), 0, False),   # edge blocks only
+    ("jacobi2d", (256, 192), 8, False),
+    ("jacobi2d", (256, 192), 0, True),
+])
+def test_a_launch_takes_the_tensor_copy_where_it_can(
+        monkeypatch, stub_launch, name, shape, offset, takes):
+    """The launch passes its choice as the 13th geometry entry and counts
+    the windows so loaded on ``.windows_tma``."""
+    spec = stencils.get(name, shape=shape)
+    tile = tiling.default_tile(spec.ndim)
+    f = stencil.launch_tile_kernel
+    for n in ("windows", "windows_tma"):
+        monkeypatch.setattr(f, n, 0)
+    f(spec, [_grids(3, shape, offset)], 1, tile)
+    plan = tiling.round_plan(spec, 1, tile)
+    assert stub_launch.geom[-1] == int(takes)
+    assert f.windows == 3 * plan.windows
+    assert f.windows_tma == (3 * plan.windows if takes else 0)
 
 
 @pytest.mark.gpu
