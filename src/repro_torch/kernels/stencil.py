@@ -36,9 +36,12 @@ periodic rule (``.wrapped_cells``), the shared-memory tap loads
 (``.smem_tap_loads``), the divisions lowered to a reciprocal and
 those left as C ``/`` (``.divides_reciprocal``, ``.divides_ieee``;
 :mod:`repro_torch.kernels.division`), and the floating-input windows
-(``.windows``).  Beside the table, ``.windows_tma`` counts the windows
-loaded by one tensor copy each (:func:`~repro_torch.kernels.tiling.tma_windows`,
-0 in a launch that does not take the copy).
+(``.windows``).  Beside the table, the counts that depend on how the
+launch loads its windows (:func:`~repro_torch.kernels.tiling.launch_counts`):
+``.windows_tma``, the windows loaded by one tensor copy each (0 in a
+launch that does not take the copy), and ``.fixup_cells``, the cells the
+boundary rule's passes visit in edge blocks after the load and after
+every stage (0 under the periodic rule).
 """
 from __future__ import annotations
 
@@ -57,9 +60,11 @@ from repro_torch.kernels.blockops import (
     torch_dtype,
 )
 from repro_torch.kernels.tiling import (
+    LAUNCH_COUNTS,
     RoundPlan,
     float_inputs,
     index_inputs,
+    launch_counts,
     round_plan,
     tap_reach,  # noqa: F401  (stencilbench's tests read it here)
     tma_windows,
@@ -204,9 +209,8 @@ def launch_tile_kernel(
     by the round loop between rounds and not passed.  The windows are
     loaded by tensor copies where the plan admits them and every floating
     input lies 16-byte aligned.  Each launch adds ``B`` times the plan's counts to
-    the counters of :data:`COUNTERS`, and to ``.windows_tma`` those of
-    :func:`~repro_torch.kernels.tiling.tma_windows` where it takes the
-    copy."""
+    the counters of :data:`COUNTERS`, and ``B`` times those of
+    :func:`~repro_torch.kernels.tiling.launch_counts` to theirs."""
     plan = _launch_plan(spec, s, None if tile is None else tuple(tile))
     dtype = torch_dtype(spec.dtype)
     B = batched[0].shape[0]
@@ -246,12 +250,12 @@ def launch_tile_kernel(
     counters = vars(launch_tile_kernel)
     for name, count in COUNTERS.items():
         counters[name] += B * getattr(plan, count)
-    if tma:
-        counters["windows_tma"] += B * copied
+    for name, count in launch_counts(spec, plan, tma).items():
+        counters[name] += B * count
     return out
 
 
-vars(launch_tile_kernel).update(dict.fromkeys(COUNTERS, 0), windows_tma=0)
+vars(launch_tile_kernel).update(dict.fromkeys((*COUNTERS, *LAUNCH_COUNTS), 0))
 
 
 def stencil_cuda(

@@ -200,13 +200,31 @@ class RoundPlan(NamedTuple):
     local_useful: int
     window_cells: int           # staged floating-input cells
     reach_cells: int
-    wrapped: int                # of them outside the grid, periodic only
+    window_outside: int         # of them outside the grid
+    wrapped: int                # the same, periodic only
     windows: int                # floating-input windows staged
     tma: bool                   # a window fits one tensor copy
     tap_loads: int              # shared-memory loads of taps
     flops: int                  # float32 operations of the issued updates
     divides_reciprocal: int     # divisions of the issued updates lowered
     divides_ieee: int           # to a reciprocal, and left as C `/`
+
+
+def _in_grid(n: int, t: int, nt: int, e: int) -> int:
+    """The cells inside ``[0, n)`` of an axis's ``nt`` tiles of ``t``
+    cells, each dilated by ``e`` cells a side, summed over the tiles: the
+    full extents less what the first tiles lose below 0 and the last above
+    ``n`` (every tile starts inside the grid)."""
+    total = nt * (t + 2 * e)
+    i = 0
+    while i < nt and i * t < e:
+        total -= e - i * t
+        i += 1
+    i = nt - 1
+    while i >= 0 and (i + 1) * t + e > n:
+        total -= (i + 1) * t + e - n
+        i -= 1
+    return total
 
 
 @functools.lru_cache(maxsize=256)
@@ -227,9 +245,11 @@ def round_plan(
     the ``local`` stages.  Edge tiles have a window that leaves the grid
     on some axis.  Every tile stages one window per floating input, and
     the taps reach the cells of the tile widened by ``s`` times
-    :func:`tap_reach`.  Under the periodic rule the window cells outside
-    the grid are wrapped, each fetched on its own from the opposite side
-    of the grid; under every other rule none is.  A window fits one tensor
+    :func:`tap_reach`.  Of the window cells, ``window_outside`` lie
+    outside the grid.  Under the periodic rule they are wrapped, each
+    fetched on its own from the opposite side of the grid; under every
+    other rule none is (:func:`fixup_cells` counts the passes that give
+    them the rule).  A window fits one tensor
     copy (``tma``; the kernel's head comment) where the spec is 2-D or 3-D,
     float32, without halo-index maps and of radius 1 or more, the grid's
     rows and the tile (unless one tile spans the row) are a multiple of 4
@@ -279,15 +299,8 @@ def round_plan(
     reach = math.prod(
         t + s * (lo + hi) for t, (lo, hi) in zip(tile, tap_reach(spec))
     )
-    wrapped = 0
-    if spec.boundary.kind == "periodic":
-        # the window cells of every tile inside the grid: per axis, the
-        # sum over that axis's tiles of the window's in-grid extent
-        in_grid = math.prod(
-            sum(min((i + 1) * t + h, n) - max(i * t - h, 0) for i in range(nt))
-            for n, t, nt in zip(grid, tile, n_tiles)
-        )
-        wrapped = floats * (tiles * math.prod(window) - in_grid)
+    window_outside = floats * (tiles * math.prod(window) - math.prod(
+        _in_grid(n, t, nt, h) for n, t, nt in zip(grid, tile, n_tiles)))
     return RoundPlan(
         tile, h, n_tiles, window, frame, pitch, framed_cells, n_buffers, smem,
         geom,
@@ -299,7 +312,8 @@ def round_plan(
         local_useful=math.prod(grid) * s * len(spec.local_stages),
         window_cells=tiles * floats * math.prod(window),
         reach_cells=tiles * floats * reach,
-        wrapped=wrapped,
+        window_outside=window_outside,
+        wrapped=window_outside if spec.boundary.kind == "periodic" else 0,
         windows=tiles * floats,
         # a 2-D or 3-D float32 spec without halo maps, with a halo (the
         # copy's mbarrier sits in a row no stage touches), whose grid rows
@@ -327,6 +341,54 @@ def tma_windows(spec: StencilSpec, plan: RoundPlan) -> int:
     if spec.boundary.kind == "periodic":
         return plan.windows // plan.tiles * (plan.tiles - plan.edge_tiles)
     return plan.windows
+
+
+def fixup_cells(spec: StencilSpec, plan: RoundPlan, copied: bool) -> int:
+    """Cells that the boundary rule's own passes visit in the edge blocks
+    of one grid, in a launch of ``plan``, ``copied`` where it loads its
+    windows by tensor copies (the kernel's head comment, "Boundary rule").
+    Each pass visits a box of a block and ends with a barrier.  After
+    every stage, the replicate rule's pass visits each cell of the stage's
+    region and tests it against the grid (``sasa_replicate_fixup``);
+    zero and constant store their value inside the stage loop, with no
+    pass.  After the load of float32 windows without halo-index maps,
+    constant and replicate visit each window cell outside the grid
+    (``sasa_fill_outside``, every floating input), and zero too where the
+    windows come by row copies (the tensor copy fills zeros itself).  On
+    specs with halo-index maps, replicate visits each cell of every
+    loaded window, and the other rules fold into each cell's load, as
+    every rule does on bfloat16 specs.  None under the periodic rule,
+    whose windows wrap (``wrapped``)."""
+    kind = spec.boundary.kind
+
+    def edge(per_grid: int) -> int:     # every tile counts alike
+        return per_grid // plan.tiles * plan.edge_tiles
+
+    if kind == "periodic":
+        return 0
+    if spec.halo_index_inputs:
+        load = edge(plan.window_cells) if kind == "replicate" else 0
+    elif spec.dtype == "float32" and (kind != "zero" or not copied):
+        load = plan.window_outside
+    else:
+        load = 0
+    return load + (edge(plan.issued) if kind == "replicate" else 0)
+
+
+# the per-grid counts of :func:`launch_counts`
+LAUNCH_COUNTS = ("windows_tma", "fixup_cells")
+
+
+def launch_counts(spec: StencilSpec, plan: RoundPlan,
+                  copied: bool) -> dict[str, int]:
+    """The per-grid counts of a launch of ``plan`` that depend on how it
+    loads its windows, ``copied`` where by tensor copies: the windows so
+    loaded (:func:`tma_windows`, 0 without the copy) and the cells the
+    boundary rule's passes visit (:func:`fixup_cells`), under the names
+    of :data:`LAUNCH_COUNTS`."""
+    return dict(zip(LAUNCH_COUNTS, (
+        tma_windows(spec, plan) if copied else 0,
+        fixup_cells(spec, plan, copied))))
 
 
 def smem_bytes_estimate(

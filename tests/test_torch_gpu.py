@@ -22,7 +22,9 @@ from repro_torch.core import dsl, numerics
 from repro_torch.core.ir import lower
 from repro_torch.core.platform import DEFAULT_GPU
 from repro_torch.core.spec import Boundary, Num
-from repro_torch.kernels import cuda_build, division, ops, pipeline, stencil, tiling
+from repro_torch.kernels import (
+    cuda_build, division, ops, pipeline, ref, stencil, tiling,
+)
 from repro_torch.runtime.bucketing import bucket_plan
 
 RTOL = {"float32": 2e-4, "bfloat16": 2e-2}   # tests/test_kernels.py::tol
@@ -275,6 +277,64 @@ def test_periodic_heat3d_at_the_benchmarks_pick_on_card(cuda_device):
     for b in range(B):
         bound = numerics.tolerance_for(spec, iterations, {"in_1": x[b].numpy()})
         err = float((got[b].double() - want[b].double()).abs().max())
+        assert err <= bound, (b, err, bound)
+
+
+# Listing 3 with Rodinia's coefficients at 720x1024 and clamped edges, as
+# the benchmark's HOTSPOT configuration states it
+# (stencilbench/configs/hotspot-720x1024.py).
+HOTSPOT_720 = """kernel: HOTSPOT
+iteration: 16
+boundary: replicate
+input float: in_1(720, 1024)
+input float: in_2(720, 1024)
+iterate: in_2
+output float: out_1(0,0) = in_2(0,0) + 0.096 * (
+    (in_2(-1,0) + in_2(1,0) - in_2(0,0) - in_2(0,0)) * 0.0703125
+    + in_1(0,0)
+    + (in_2(0,-1) + in_2(0,1) - in_2(0,0) - in_2(0,0)) * 0.142222222
+    + (80 - in_2(0,0)) * 0.0000694444444)
+"""
+
+
+@pytest.mark.gpu
+def test_replicate_hotspot_at_the_benchmarks_pick_on_card(cuda_device):
+    """HOTSPOT with clamped edges as the benchmark's cell runs it: 720x1024
+    on 64x64 tiles at s = 8 (52 of 192 blocks edge blocks, two windows a
+    block, the power window held through every fused iteration), every
+    window by the tensor copy.  B = 2: one round bitwise the plain version,
+    adding B times the plan's windows to ``.windows_tma`` and its fixup
+    count to ``.fixup_cells``; K1 on one grid bitwise K2; 16 iterations
+    against the float64 oracle (``kernels/ref.py``) within the certified
+    bound."""
+    B, s, tile, iterations = 2, 8, (64, 64), 16
+    spec = lower(dsl.parse(HOTSPOT_720)).spec
+    plan = tiling.round_plan(spec, s, tile)
+    assert plan.tma and (plan.tiles, plan.edge_tiles) == (192, 52)
+    rng = np.random.default_rng(20)
+    arrays = {n: torch.from_numpy(rng.uniform(0, 1, (B, 720, 1024))
+                                  .astype(np.float32)) for n in spec.inputs}
+    on_card = {n: a.to(cuda_device) for n, a in arrays.items()}
+    f = stencil.launch_tile_kernel
+    before = (f.windows_tma, f.fixup_cells)
+    both = pipeline.stencil_cuda_batched(spec, on_card, s, tile)
+    assert (f.windows_tma - before[0], f.fixup_cells - before[1]) == (
+        B * plan.windows, B * tiling.fixup_cells(spec, plan, True))
+    assert torch.equal(both.cpu(), stencil.tiled_round(spec, arrays, s, tile))
+    one = {n: a[0] for n, a in on_card.items()}
+    assert torch.equal(stencil.stencil_cuda(spec, one, s, tile), both[0])
+    got = pipeline.stencil_run_batched(spec, on_card, iterations, s=s,
+                                       tile=tile).cpu()
+    f64 = dataclasses.replace(
+        spec, inputs={n: ("float64", shp) for n, (_, shp) in spec.inputs.items()},
+        stages=tuple(dataclasses.replace(st, dtype="float64")
+                     for st in spec.stages))
+    want = ref.stencil_iterations_ref(
+        f64, {n: a.double() for n, a in arrays.items()}, iterations)
+    for b in range(B):
+        bound = numerics.tolerance_for(
+            spec, iterations, {n: a[b].numpy() for n, a in arrays.items()})
+        err = float((got[b].double() - want[b]).abs().max())
         assert err <= bound, (b, err, bound)
 
 

@@ -15,6 +15,7 @@ holds the spans against the CUDA runtime's launch events on the card::
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import itertools
 import json
 import math
@@ -27,6 +28,7 @@ import torch
 from repro_torch import trace
 from repro_torch.configs import stencils
 from repro_torch.core.model import ParallelismConfig
+from repro_torch.core.spec import Boundary
 from repro_torch.kernels import stencil, tiling
 from repro_torch.runtime.batching import build_batched_runner
 
@@ -174,7 +176,11 @@ class _OnCard:
 @pytest.fixture
 def stub_launch(monkeypatch):
     """``launch_tile_kernel`` without a card: the library and the CUDA
-    calls stubbed.  Gives the stub library, which keeps the last geom."""
+    calls stubbed, and every counter of the launch put back as it was
+    after the test.  Gives the stub library, which keeps the last geom."""
+    for n in (*stencil.COUNTERS, *tiling.LAUNCH_COUNTS):
+        monkeypatch.setattr(stencil.launch_tile_kernel, n,
+                            getattr(stencil.launch_tile_kernel, n))
     fake = types.SimpleNamespace(
         int32=torch.int32,
         empty=lambda shape, dtype, device: torch.empty(shape, dtype=dtype),
@@ -199,6 +205,7 @@ def _grids(batch, shape, offset=0):
     ("blur_jacobi2d", (9720, 1024), 2, (64, 64), 8),
     ("heat3d_periodic", (9720, 32, 32), 2, (16, 8, 32), 8),
     ("heat3d_periodic", (40, 24, 30), 4, (5, 8, 32), 3),
+    ("hotspot", (720, 1024), 8, (64, 64), 64),
 ])
 def test_a_launch_adds_its_batch_times_the_plan_to_the_counters(
         monkeypatch, stub_launch, name, shape, s, tile, batch):
@@ -210,24 +217,49 @@ def test_a_launch_adds_its_batch_times_the_plan_to_the_counters(
     names = ("updates_issued", "updates_useful", "blocks", "edge_blocks",
              "local_updates_issued", "local_updates_useful", "window_cells",
              "reach_cells", "smem_tap_loads", "wrapped_cells", "windows",
-             "windows_tma")
+             "windows_tma", "fixup_cells")
     for n in names:    # no launch of this test outlives it
         monkeypatch.setattr(f, n, 7)
     for _ in range(2):
-        f(spec, [grids], s, tile)
+        f(spec, [grids] * len(spec.inputs), s, tile)
     plan = tiling.round_plan(spec, s, tile)
+    takes = name != "heat3d_periodic"
     assert [getattr(f, n) - 7 for n in names] == [
         2 * batch * v for v in (plan.issued, plan.useful, plan.tiles,
                                 plan.edge_tiles, plan.local_issued,
                                 plan.local_useful, plan.window_cells,
                                 plan.reach_cells, plan.tap_loads,
                                 plan.wrapped, plan.windows,
-                                tiling.tma_windows(spec, plan))]
+                                tiling.tma_windows(spec, plan),
+                                tiling.fixup_cells(spec, plan, takes))]
     assert (plan.wrapped > 0) == (name == "heat3d_periodic")
     # every window of the zero rule's cells takes the tensor copy, none of
     # the periodic cell's (every block an edge block)
-    assert stub_launch.geom == (batch,) + plan.geom + (
-        int(name != "heat3d_periodic"),)
+    assert stub_launch.geom == (batch,) + plan.geom + (int(takes),)
+
+
+@pytest.mark.parametrize("kind", ["zero", "constant", "replicate",
+                                  "periodic"])
+def test_a_launch_adds_the_cells_its_rule_passes_visit(monkeypatch,
+                                                       stub_launch, kind):
+    """HOTSPOT's two windows at the benchmark cell's pick (B = 64, s = 8,
+    64x64 on 720x1024, 52 of 192 blocks edge blocks): a launch adds B
+    times the plan's fixup count to ``.fixup_cells``: the windows' cells
+    outside the grid under constant and replicate (the tensor copy fills
+    the zeros), and under replicate every stage region cell of the edge
+    blocks."""
+    spec = dataclasses.replace(
+        stencils.get("hotspot", shape=(720, 1024)),
+        boundary=Boundary(kind, 1.5 if kind == "constant" else 0.0))
+    f = stencil.launch_tile_kernel
+    monkeypatch.setattr(f, "fixup_cells", 0)
+    f(spec, [_grids(64, (720, 1024))] * 2, 8, (64, 64))
+    plan = tiling.round_plan(spec, 8, (64, 64))
+    assert (plan.window_outside, plan.issued, plan.edge_tiles) == (
+        192512, 192 * 40496, 52)
+    want = {"zero": 0, "constant": 192512,
+            "replicate": 192512 + 52 * 40496, "periodic": 0}[kind]
+    assert f.fixup_cells == 64 * want
 
 
 @pytest.mark.parametrize("name, shape, offset, takes", [
@@ -246,13 +278,18 @@ def test_a_launch_takes_the_tensor_copy_where_it_can(
     spec = stencils.get(name, shape=shape)
     tile = tiling.default_tile(spec.ndim)
     f = stencil.launch_tile_kernel
-    for n in ("windows", "windows_tma"):
+    for n in ("windows", "windows_tma", "fixup_cells"):
         monkeypatch.setattr(f, n, 0)
     f(spec, [_grids(3, shape, offset)], 1, tile)
     plan = tiling.round_plan(spec, 1, tile)
     assert stub_launch.geom[-1] == int(takes)
     assert f.windows == 3 * plan.windows
     assert f.windows_tma == (3 * plan.windows if takes else 0)
+    # the zero rule's row copies fill the windows' outside cells by a pass
+    # the tensor copy does not need; the zero rule has no pass after a stage
+    loaded = name != "heat3d_periodic" and not takes
+    assert f.fixup_cells == 3 * tiling.fixup_cells(spec, plan, takes) == (
+        3 * loaded * plan.window_outside)
 
 
 @pytest.mark.gpu
